@@ -1,0 +1,148 @@
+"""Weights for the PyTorch port: carried across from the JAX package's flax
+parameter tree, or initialised from a seed.
+
+``state_dict_from_jax_params`` is this package's own copy of the JAX
+package's ``checkpoint/torch_import.py`` mapping (``_ours_to_d2`` and
+``_deconvert``): flax paths -> detectron2 state-dict names, with HWIO ->
+OIHW convolutions, (in, out) -> (out, in) linears and (C,) -> (1, C, 1, 1)
+affines. ``init_weights`` gives a model the JAX package's initialisers,
+drawn from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_INV_MOD = {
+    "conv1": ("conv1", None),
+    "conv2": ("conv2", None),
+    "conv3": ("conv3", None),
+    "bn1": ("conv1", "norm"),
+    "bn2": ("conv2", "norm"),
+    "bn3": ("conv3", "norm"),
+    "shortcut": ("shortcut", None),
+    "shortcut_bn": ("shortcut", "norm"),
+}
+
+
+def jax_path_to_d2(path):
+    """Flattened flax path -> (detectron2 state-dict name, kind), or
+    (None, None) for a parameter with no detectron2 name."""
+    p = tuple(map(str, path))
+    if p == ("backbone", "stem_conv1", "kernel"):
+        return "backbone.stem.conv1.weight", "conv"
+    if len(p) == 3 and p[:2] == ("backbone", "stem_bn1"):
+        return "backbone.stem.conv1.norm." + p[2], "bn"
+
+    def res_block(prefix, block, mod, leaf):
+        conv, norm = _INV_MOD.get(mod, (None, None))
+        if conv is None or not block.startswith("block"):
+            return None, None
+        b = block[len("block"):]
+        if norm:
+            return f"{prefix}.{b}.{conv}.norm.{leaf}", "bn"
+        if leaf != "kernel":
+            return None, None
+        return f"{prefix}.{b}.{conv}.weight", "conv"
+
+    if len(p) == 5 and p[0] == "backbone" and p[1].startswith("res"):
+        return res_block(f"backbone.{p[1]}", p[2], p[3], p[4])
+    if len(p) == 6 and p[:3] == ("roi_heads", "res5", "res5"):
+        return res_block("roi_heads.res5", p[3], p[4], p[5])
+    if len(p) == 3 and p[0] == "rpn_head" and p[1] in (
+        "conv", "objectness_logits", "anchor_deltas"
+    ):
+        base = f"proposal_generator.rpn_head.{p[1]}"
+        if p[2] == "kernel":
+            return base + ".weight", "conv"
+        if p[2] == "bias":
+            return base + ".bias", "plain"
+    if len(p) == 4 and p[:2] == ("roi_heads", "box_predictor") \
+            and p[2] in ("cls_score", "bbox_pred"):
+        base = f"roi_heads.box_predictor.{p[2]}"
+        if p[3] == "kernel":
+            return base + ".weight", "linear"
+        if p[3] == "bias":
+            return base + ".bias", "plain"
+    if len(p) == 2 and p[0] in ("affine_rpn", "affine_rcnn"):
+        return f"{p[0]}.{p[1]}", "affine"
+    return None, None
+
+
+def _to_torch_layout(value: np.ndarray, kind: str) -> np.ndarray:
+    v = np.asarray(value, np.float32)
+    if kind == "conv":
+        return v.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if kind == "linear":
+        return v.T  # (in, out) -> (out, in)
+    if kind == "affine":
+        return v.reshape(1, -1, 1, 1)  # (C,) -> (1, C, 1, 1)
+    return v
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax param tree of the JAX ``GeneralizedRCNN`` (nested dicts of
+    numpy arrays) -> this package's ``state_dict`` (float32 tensors).
+    Raises on a parameter that has no name here (the text branches)."""
+    state, unknown = {}, []
+    for path, value in _flatten(params):
+        name, kind = jax_path_to_d2(path)
+        if name is None:
+            unknown.append("/".join(map(str, path)))
+            continue
+        state[name] = torch.from_numpy(
+            np.ascontiguousarray(_to_torch_layout(value, kind)))
+    if unknown:
+        raise ValueError(f"parameters with no PyTorch name: {unknown}")
+    return state
+
+
+def _he_fan_out_(w: torch.Tensor, gen: torch.Generator):
+    """flax ``variance_scaling(2.0, "fan_out", "truncated_normal")``: a
+    normal truncated at +-2 std, rescaled to variance 2 / fan_out."""
+    fan_out = w.shape[0] * math.prod(w.shape[2:])
+    std = math.sqrt(2.0 / fan_out) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's initialisers, drawn from ``generator`` in parameter
+    order: He fan-out truncated normal for backbone and res5 convolutions,
+    zeros for each block's conv3 (so a random deep ResNet with identity
+    FrozenBN stays bounded), N(0, 0.01) for the RPN head and the class
+    scores, N(0, 0.001) for the box deltas, zero biases, and identity
+    FrozenBN and affine layers."""
+    for name, param in model.named_parameters():
+        if name.endswith(".bias"):
+            param.zero_()
+        elif name.startswith("affine_"):
+            param.fill_(1.0)
+        elif name.endswith("conv3.weight"):
+            param.zero_()
+        elif name.startswith("proposal_generator.") or \
+                name.endswith("cls_score.weight"):
+            nn.init.normal_(param, 0.0, 0.01, generator=generator)
+        elif name.endswith("bbox_pred.weight"):
+            nn.init.normal_(param, 0.0, 0.001, generator=generator)
+        else:
+            _he_fan_out_(param, generator)
+    for name, buf in model.named_buffers():
+        if name.endswith(("norm.weight", "norm.running_var")):
+            buf.fill_(1.0)
+        elif name.endswith(("norm.bias", "norm.running_mean")):
+            buf.zero_()
+    return model

@@ -1,0 +1,155 @@
+"""Self-contained yacs-style config system (the PyTorch port's own copy).
+
+A CfgNode with ``_BASE_`` YAML inheritance and a strict, type-checked merge
+(the part of fvcore's CfgNode that loading ``configs/`` needs), without the
+fvcore/yacs dependency. defaults.py holds the complete schema, with the
+JAX package's key names.
+"""
+
+from __future__ import annotations
+
+import ast
+import copy
+import os
+from typing import Any
+
+import yaml
+
+_BASE_KEY = "_BASE_"
+LATEST_VERSION = 2
+
+
+class CfgNode(dict):
+    """dict with attribute access, deep merge, and YAML loading."""
+
+    def __init__(self, init_dict: dict | None = None):
+        init_dict = init_dict or {}
+        super().__init__()
+        for k, v in init_dict.items():
+            self[k] = CfgNode(v) if isinstance(v, dict) else v
+
+    # -- attribute access ------------------------------------------------
+    def __getattr__(self, name: str) -> Any:
+        if name in self:
+            return self[name]
+        raise AttributeError(f"Config has no key {name!r}")
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = CfgNode(value) if isinstance(value, dict) and not isinstance(value, CfgNode) else value
+
+    def clone(self) -> "CfgNode":
+        return copy.deepcopy(self)
+
+    # -- merging ---------------------------------------------------------
+    def merge_from_file(self, cfg_filename: str) -> None:
+        """Strict merge of a YAML file and its ``_BASE_`` chain. Only
+        VERSION 2 files (every file in ``configs/``) are read: the
+        detectron2 V1 key renames are not carried in this package."""
+        loaded = _load_yaml_with_base(cfg_filename)
+        version = loaded.get("VERSION", LATEST_VERSION)
+        if version != LATEST_VERSION:
+            raise ValueError(
+                f"{cfg_filename}: config VERSION {version} is not supported "
+                f"(only VERSION {LATEST_VERSION})"
+            )
+        _merge(loaded, self)
+
+    # -- io ----------------------------------------------------------------
+    def dump(self) -> str:
+        return yaml.safe_dump(_to_plain(self), default_flow_style=None)
+
+
+def _to_plain(node):
+    if isinstance(node, CfgNode):
+        return {k: _to_plain(v) for k, v in node.items()}
+    if isinstance(node, tuple):
+        return list(node)
+    return node
+
+
+def _merge(src: dict, dst: CfgNode) -> None:
+    for k, v in src.items():
+        if k == _BASE_KEY:
+            continue
+        if k not in dst:
+            raise KeyError(f"Non-existent config key: {k}")
+        if isinstance(v, dict) and isinstance(dst[k], CfgNode):
+            _merge(v, dst[k])
+        else:
+            dst[k] = _coerce_merged(v, dst[k])
+
+
+def _deep_tuple(v: Any) -> Any:
+    if isinstance(v, (list, tuple)):
+        return tuple(_deep_tuple(x) for x in v)
+    return v
+
+
+def _coerce_merged(new: Any, old: Any) -> Any:
+    # YAML gives lists; keep tuples as tuples when the default was a
+    # tuple — recursively, so nested defaults like ANCHOR_GENERATOR.SIZES
+    # (((32, 64, ...),)) keep their type through dump -> reload cycles
+    if isinstance(old, tuple) and isinstance(new, (list, tuple)):
+        return _deep_tuple(new)
+    if isinstance(new, str):
+        return _coerce(new, old)
+    return new
+
+
+def _coerce(v: str, old: Any) -> Any:
+    """Parse a YAML string value against the default's type.
+
+    Type mismatches RAISE like yacs's _check_and_coerce_cfg_value_type:
+    a string such as 'false' for a bool key must not be stored as a truthy
+    string."""
+    if not isinstance(v, str):
+        return v
+    try:
+        parsed = ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        parsed = v
+    if isinstance(old, tuple) and isinstance(parsed, (list, tuple)):
+        return tuple(parsed)
+    if isinstance(old, bool):
+        if isinstance(parsed, (bool, int)):
+            return bool(parsed)
+        if isinstance(parsed, str) and parsed.lower() in ("true", "false"):
+            return parsed.lower() == "true"
+        raise ValueError(f"Cannot interpret {v!r} as a bool override")
+    if (
+        isinstance(parsed, str)
+        and old is not None
+        and not isinstance(old, str)
+    ):
+        raise ValueError(
+            f"Cannot interpret override {v!r} for a "
+            f"{type(old).__name__}-typed config value"
+        )
+    return parsed
+
+
+def _load_yaml_with_base(filename: str) -> dict:
+    with open(filename) as f:
+        cfg = yaml.safe_load(f) or {}
+    base = cfg.pop(_BASE_KEY, None)
+    if base:
+        if not os.path.isabs(base):
+            base = os.path.join(os.path.dirname(filename), base)
+        base_cfg = _load_yaml_with_base(base)
+        _merge_plain(cfg, base_cfg)
+        return base_cfg
+    return cfg
+
+
+def _merge_plain(src: dict, dst: dict) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _merge_plain(v, dst[k])
+        else:
+            dst[k] = v
+
+
+def get_cfg() -> CfgNode:
+    from .defaults import _C
+
+    return _C.clone()

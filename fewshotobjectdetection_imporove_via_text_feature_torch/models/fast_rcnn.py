@@ -1,0 +1,90 @@
+"""Fast R-CNN output layers and fixed-shape inference.
+
+Counterpart of the JAX package's ``models/fast_rcnn.py`` (inference side):
+softmax -> drop the background column -> score threshold -> a static
+candidate budget by top-k -> class-offset NMS with ``max_keep`` -> the first
+``topk_per_image`` kept detections in fixed slots. Losses belong to the
+training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.box_ops import clip_boxes, decode_deltas
+from ..ops.nms import batched_nms_fixed, top_k
+from .rpn import compact_kept
+
+
+class FastRCNNOutputLayers(nn.Module):
+    """Linear cls (K+1) and box (4K, or 4 class-agnostic) heads, float32."""
+
+    def __init__(self, in_features: int, num_classes: int,
+                 cls_agnostic_bbox_reg: bool = False, box_dim: int = 4):
+        super().__init__()
+        num_reg = 1 if cls_agnostic_bbox_reg else num_classes
+        self.cls_score = nn.Linear(in_features, num_classes + 1)
+        self.bbox_pred = nn.Linear(in_features, num_reg * box_dim)
+
+    def forward(self, x):
+        if x.dim() > 2:
+            x = x.flatten(1)
+        return self.cls_score(x), self.bbox_pred(x)
+
+
+def fast_rcnn_inference(pred_logits, pred_deltas, proposal_boxes,
+                        proposal_valid, image_hw, num_classes: int,
+                        score_thresh: float = 0.05, nms_thresh: float = 0.5,
+                        topk_per_image: int = 100, candidate_topk: int = 1024,
+                        box_reg_weights=(10.0, 10.0, 5.0, 5.0)):
+    """Batched fixed-shape Fast R-CNN inference.
+
+    pred_logits (B, P, K+1), pred_deltas (B, P, 4K or 4), proposal_boxes
+    (B, P, 4), proposal_valid (B, P), image_hw (B, 2) in the network frame.
+    Returns boxes (B, D, 4), scores (B, D), classes (B, D) int32 and valid
+    (B, D), D = topk_per_image, in the network frame.
+    """
+    b, p = pred_logits.shape[:2]
+    scores = torch.softmax(pred_logits, dim=-1)[..., :-1]  # (B, P, K)
+    boxes = decode_deltas(pred_deltas, proposal_boxes, box_reg_weights)
+    if pred_deltas.shape[-1] == 4:
+        boxes = boxes[:, :, None, :].expand(b, p, num_classes, 4)
+    else:
+        boxes = boxes.reshape(b, p, num_classes, 4)
+    hw = image_hw.to(boxes.dtype)
+    boxes = clip_boxes(boxes, (hw[:, 0, None, None], hw[:, 1, None, None]))
+
+    cand = (scores > score_thresh) & proposal_valid[..., None]
+    flat_scores = torch.where(cand, scores, -1.0).reshape(b, -1)
+    k = min(candidate_topk, flat_scores.shape[1])
+    top_scores, top_idx = top_k(flat_scores, k)
+    top_valid = top_scores > 0.0
+    top_boxes = torch.gather(boxes.reshape(b, -1, 4), 1,
+                             top_idx[..., None].expand(b, k, 4))
+    top_classes = (top_idx % num_classes).to(torch.int32)
+
+    # top_scores are descending (invalid -1 fill sorts last): NMS skips its
+    # sort; only the first topk_per_image kept entries are used, so it may
+    # stop there
+    keep, _ = batched_nms_fixed(top_boxes, top_scores, top_classes,
+                                top_valid, nms_thresh, assume_sorted=True,
+                                max_keep=topk_per_image)
+    d = topk_per_image
+    pos, valid = compact_kept(keep, d)
+    out_boxes = torch.gather(top_boxes, 1, pos[..., None].expand(b, d, 4))
+    out_boxes = torch.where(valid[..., None], out_boxes, 0.0)
+    out_scores = torch.where(valid, torch.gather(top_scores, 1, pos), 0.0)
+    out_classes = torch.where(valid, torch.gather(top_classes, 1, pos), 0)
+    return out_boxes, out_scores, out_classes.to(torch.int32), valid
+
+
+def rescale_detections(boxes, image_hw, orig_hw):
+    """detector_postprocess: boxes (B, D, 4) from the resized network frame
+    (image_hw (B, 2)) back to original coordinates (orig_hw (B, 2)), clipped."""
+    dt = boxes.dtype
+    sy = orig_hw[:, 0].to(dt) / image_hw[:, 0].to(dt)
+    sx = orig_hw[:, 1].to(dt) / image_hw[:, 1].to(dt)
+    scaled = boxes * torch.stack([sx, sy, sx, sy], dim=-1)[:, None, :]
+    oh = orig_hw.to(dt)
+    return clip_boxes(scaled, (oh[:, 0, None], oh[:, 1, None]))

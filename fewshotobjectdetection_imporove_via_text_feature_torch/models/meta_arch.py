@@ -1,0 +1,199 @@
+"""GeneralizedRCNN: the DeFRCN C4 detector with gradient-decoupled branches.
+
+Counterpart of the JAX package's ``models/meta_arch.py`` (inference side):
+normalize -> backbone (res4) -> GDL + affine per branch -> RPN proposals ->
+Res5 ROI head -> fixed-shape Fast R-CNN inference -> original-frame boxes.
+Module names follow detectron2's state dict (``backbone``,
+``proposal_generator.rpn_head``, ``roi_heads``, ``affine_rpn``,
+``affine_rcnn``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from ..ops.gdl import decouple_layer
+from ..structures import Detections, ImageBatch
+from .backbone import RESNET_STAGES, ResNetC4
+from .fast_rcnn import fast_rcnn_inference, rescale_detections
+from .roi_heads import Res5ROIHeads
+from .rpn import RPNHead, cell_anchors, select_top_proposals
+
+
+class AffineLayer(nn.Module):
+    """Per-channel scale and bias on an NCHW map; parameters (1, C, 1, 1)
+    as in detectron2's DeFRCN."""
+
+    def __init__(self, channels: int, use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(1, channels, 1, 1))
+        self.bias = (nn.Parameter(torch.zeros(1, channels, 1, 1))
+                     if use_bias else None)
+
+    def forward(self, x):
+        out = x * self.weight.to(x.dtype)
+        if self.bias is not None:
+            out = out + self.bias.to(x.dtype)
+        return out
+
+
+class _ProposalGenerator(nn.Module):
+    """Holds the RPN head under detectron2's ``proposal_generator`` name."""
+
+    def __init__(self, in_channels: int, num_anchors: int):
+        super().__init__()
+        self.rpn_head = RPNHead(in_channels, num_anchors)
+
+
+class GeneralizedRCNN(nn.Module):
+    """DeFRCN-style Faster R-CNN C4; ``forward_inference`` is the serving
+    path. Hyper-parameters keep the JAX module's field names."""
+
+    def __init__(
+        self,
+        num_classes: int = 20,
+        rpn_enable_decouple: bool = True,
+        rpn_backward_scale: float = 0.0,
+        roi_enable_decouple: bool = True,
+        roi_backward_scale: float = 0.75,
+        depth: int = 101,
+        stem_out_channels: int = 64,
+        res2_out_channels: int = 256,
+        width_per_group: int = 64,
+        stride_in_1x1: bool = True,
+        elide_strided_bins: bool = True,
+        freeze_at: int = 3,
+        anchor_sizes: Tuple[int, ...] = (32, 64, 128, 256, 512),
+        anchor_aspect_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0),
+        anchor_stride: int = 16,
+        rpn_pre_nms_topk: Tuple[int, int] = (12000, 6000),
+        rpn_post_nms_topk: Tuple[int, int] = (2000, 1000),
+        rpn_nms_thresh: float = 0.7,
+        rpn_bbox_reg_weights: Tuple[float, ...] = (1.0,) * 4,
+        rpn_min_size: float = 0.0,
+        roi_chunk: int = 256,
+        pooler_resolution: int = 7,
+        sampling_ratio: int = 0,
+        box_reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0),
+        cls_agnostic_bbox_reg: bool = False,
+        test_score_thresh: float = 0.05,
+        test_nms_thresh: float = 0.5,
+        test_topk_per_image: int = 100,
+        test_candidate_topk: int = 1024,
+        pixel_mean: Tuple[float, ...] = (103.530, 116.280, 123.675),
+        pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0),
+        dtype=torch.float32,
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.rpn_enable_decouple = rpn_enable_decouple
+        self.rpn_backward_scale = rpn_backward_scale
+        self.roi_enable_decouple = roi_enable_decouple
+        self.roi_backward_scale = roi_backward_scale
+        self.anchor_sizes = tuple(anchor_sizes)
+        self.anchor_aspect_ratios = tuple(anchor_aspect_ratios)
+        self.anchor_stride = anchor_stride
+        self.rpn_pre_nms_topk = tuple(rpn_pre_nms_topk)
+        self.rpn_post_nms_topk = tuple(rpn_post_nms_topk)
+        self.rpn_nms_thresh = rpn_nms_thresh
+        self.rpn_bbox_reg_weights = tuple(rpn_bbox_reg_weights)
+        self.rpn_min_size = rpn_min_size
+        self.box_reg_weights = tuple(box_reg_weights)
+        self.test_score_thresh = test_score_thresh
+        self.test_nms_thresh = test_nms_thresh
+        self.test_topk_per_image = test_topk_per_image
+        self.test_candidate_topk = test_candidate_topk
+        self.pixel_mean = tuple(pixel_mean)
+        self.pixel_std = tuple(pixel_std)
+        self.dtype = dtype
+
+        self.backbone = ResNetC4(
+            depth=depth, stem_out_channels=stem_out_channels,
+            res2_out_channels=res2_out_channels,
+            width_per_group=width_per_group, stride_in_1x1=stride_in_1x1,
+            freeze_at=freeze_at, dtype=dtype,
+        )
+        c4 = res2_out_channels * 4
+        num_anchors = len(self.anchor_sizes) * len(self.anchor_aspect_ratios)
+        self.proposal_generator = _ProposalGenerator(c4, num_anchors)
+        # as in the JAX parameter tree, a branch's affine layer exists only
+        # when that branch is decoupled
+        self.affine_rpn = AffineLayer(c4) if rpn_enable_decouple else None
+        self.affine_rcnn = AffineLayer(c4) if roi_enable_decouple else None
+        self.roi_heads = Res5ROIHeads(
+            num_classes=num_classes, sampling_ratio=sampling_ratio,
+            pooler_resolution=pooler_resolution,
+            res2_out_channels=res2_out_channels,
+            width_per_group=width_per_group,
+            res5_blocks=RESNET_STAGES[depth][3],
+            cls_agnostic_bbox_reg=cls_agnostic_bbox_reg, roi_chunk=roi_chunk,
+            stride_in_1x1=stride_in_1x1,
+            elide_strided_bins=elide_strided_bins, dtype=dtype,
+        )
+
+    # ------------------------------------------------------------------
+    def normalize(self, image: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) raw pixels -> (B, 3, H, W) in the compute dtype.
+        Padded zero pixels are normalized like the others (PARITY #13)."""
+        dt = self.dtype
+        image = image.to(dt)
+        mean = torch.tensor(self.pixel_mean, dtype=dt, device=image.device)
+        std = torch.tensor(self.pixel_std, dtype=dt, device=image.device)
+        return ((image - mean) / std).permute(0, 3, 1, 2).contiguous()
+
+    def compute_features(self, images: ImageBatch):
+        feats = self.backbone(self.normalize(images.image))
+        return feats["res4"], feats
+
+    def branch_features(self, feat):
+        """GDL + affine per branch (ref rcnn.py:88-98)."""
+        feat_rpn = feat
+        if self.rpn_enable_decouple:
+            feat_rpn = self.affine_rpn(
+                decouple_layer(feat, self.rpn_backward_scale))
+        feat_rcnn = feat
+        if self.roi_enable_decouple:
+            feat_rcnn = self.affine_rcnn(
+                decouple_layer(feat, self.roi_backward_scale))
+        return feat_rpn, feat_rcnn
+
+    def run_rpn(self, feat_rpn, images: ImageBatch, train: bool):
+        logits, deltas = self.proposal_generator.rpn_head(feat_rpn)
+        h, w = feat_rpn.shape[2], feat_rpn.shape[3]
+        idx = 0 if train else 1
+        proposals = select_top_proposals(
+            logits.detach(), deltas.detach(),
+            cell_anchors(self.anchor_sizes, self.anchor_aspect_ratios),
+            (h, w), self.anchor_stride, images.hw,
+            pre_nms_topk=self.rpn_pre_nms_topk[idx],
+            post_nms_topk=self.rpn_post_nms_topk[idx],
+            nms_thresh=self.rpn_nms_thresh, min_size=self.rpn_min_size,
+            bbox_reg_weights=self.rpn_bbox_reg_weights,
+        )
+        return logits, deltas, proposals
+
+    def forward(self, images: ImageBatch) -> Detections:
+        return self.forward_inference(images)
+
+    def forward_inference(self, images: ImageBatch) -> Detections:
+        feat, _ = self.compute_features(images)
+        feat_rpn, feat_rcnn = self.branch_features(feat)
+        _, _, proposals = self.run_rpn(feat_rpn, images, train=False)
+        scores, deltas = self.roi_heads(feat_rcnn, proposals.boxes)
+        b, p = proposals.boxes.shape[:2]
+        boxes, scores, classes, valid = fast_rcnn_inference(
+            scores.reshape(b, p, -1), deltas.reshape(b, p, -1),
+            proposals.boxes, proposals.valid, images.hw,
+            num_classes=self.num_classes,
+            score_thresh=self.test_score_thresh,
+            nms_thresh=self.test_nms_thresh,
+            topk_per_image=self.test_topk_per_image,
+            candidate_topk=self.test_candidate_topk,
+            box_reg_weights=self.box_reg_weights,
+        )
+        boxes = rescale_detections(boxes, images.hw, images.orig_hw)
+        return Detections(boxes=boxes, scores=scores, classes=classes,
+                          valid=valid)

@@ -1,0 +1,28 @@
+from .box_ops import (
+    box_area,
+    clip_boxes,
+    decode_deltas,
+    nonempty_mask,
+    pairwise_iou,
+)
+from .dispatch import plain_ops
+from .gdl import decouple_layer
+from .nms import batched_nms_fixed, nms_auto, nms_fixed, top_k
+from .roi_align import roi_align, roi_align_plain, roi_sample_geometry
+
+__all__ = [
+    "box_area",
+    "clip_boxes",
+    "decode_deltas",
+    "nonempty_mask",
+    "pairwise_iou",
+    "plain_ops",
+    "decouple_layer",
+    "batched_nms_fixed",
+    "nms_auto",
+    "nms_fixed",
+    "top_k",
+    "roi_align",
+    "roi_align_plain",
+    "roi_sample_geometry",
+]

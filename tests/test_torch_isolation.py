@@ -1,0 +1,97 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor any
+module of the JAX package, no file of it (nor chip_smoke.py) imports them,
+and its entry points run on CUDA unless the caller asks for the CPU."""
+
+import ast
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = "fewshotobjectdetection_imporove_via_text_feature_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax",
+             "fewshotobjectdetection_imporove_via_text_feature_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        f"import {PORT} as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert f"{PORT}.engine.predictor" in mods
+    assert not [m for m in mods if _forbidden(m)]
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_file_of_the_port_imports_jax():
+    files = sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = {str(f.relative_to(ROOT)): m for f in files for m in _imports(f)
+           if _forbidden(m)}
+    assert not bad
+
+
+def test_predictor_refuses_to_leave_cuda_quietly():
+    import torch
+
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is usable")
+    cfg = get_cfg()
+    assert cfg.MODEL.DEVICE == "cuda"
+    cfg.MODEL.WEIGHTS = ""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DefaultPredictor(cfg)
+    cfg.TPU.SPATIAL_PARTITION = 2
+    with pytest.raises(NotImplementedError):
+        DefaultPredictor(cfg, device="cpu")
+
+
+def test_chip_smoke_fails_without_cuda_or_without_the_repo(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: chip_smoke.py would run for real")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    here = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=300)
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+    for run in (here, alone):
+        assert run.returncode != 0
+        assert '"ok"' not in run.stdout

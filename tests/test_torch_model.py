@@ -1,0 +1,282 @@
+"""The PyTorch port's detector against the JAX package's, on the CPU.
+
+Tiny networks (depth 14 and 26, narrow widths) on the 128x160 canvas of
+tests/test_full_network_oracle.py, float32 on both sides. The JAX params
+(perturbed so that every translated tensor matters) go through
+``state_dict_from_jax_params``, cross-checked against the JAX exporter
+``export_d2_state``, into the port. Compared: res4 and pooled res5
+features (relative 1e-4), RPN proposal selection and Fast R-CNN inference
+on the same head outputs (kept sets exact, boxes to a few ulp), and the whole
+``forward_inference``, padded and unpadded, with ``stride_in_1x1`` both
+ways, valid detections compared as sets.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from fewshotobjectdetection_imporove_via_text_feature_tpu.checkpoint.torch_import import (
+    export_d2_state,
+)
+from fewshotobjectdetection_imporove_via_text_feature_tpu.models import (
+    GeneralizedRCNN as JaxRCNN,
+)
+from fewshotobjectdetection_imporove_via_text_feature_tpu.models.fast_rcnn import (
+    fast_rcnn_inference as jax_fast_rcnn_inference,
+)
+from fewshotobjectdetection_imporove_via_text_feature_tpu.models.rpn import (
+    select_top_proposals as jax_select,
+)
+from fewshotobjectdetection_imporove_via_text_feature_tpu.structures import (
+    ImageBatch as JaxImageBatch,
+)
+from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint import (
+    init_weights,
+    state_dict_from_jax_params,
+)
+from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+    GeneralizedRCNN,
+    cell_anchors,
+    fast_rcnn_inference,
+    select_top_proposals,
+)
+from fewshotobjectdetection_imporove_via_text_feature_torch.structures import (
+    ImageBatch,
+)
+from tests.test_full_network_oracle import _perturb
+
+NUM_CLASSES = 5
+H, W = 128, 160
+PRE_NMS = 1200
+POST_NMS = 300
+
+_CACHE = {}
+
+
+def tiny_kwargs(depth=14, stride_in_1x1=True):
+    return dict(
+        num_classes=NUM_CLASSES, depth=depth, stem_out_channels=8,
+        res2_out_channels=16, width_per_group=4, freeze_at=0,
+        stride_in_1x1=stride_in_1x1,
+        rpn_pre_nms_topk=(PRE_NMS, PRE_NMS),
+        rpn_post_nms_topk=(POST_NMS, POST_NMS),
+        test_candidate_topk=POST_NMS * NUM_CLASSES,
+    )
+
+
+def inputs(padded: bool, seed=7):
+    """Two images; padded=True puts image 1 at (96, 128) inside the canvas,
+    zero pixels outside (PARITY #13)."""
+    rng = np.random.RandomState(seed)
+    canvas = rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32)
+    hw = np.array([[H, W], [H, W]], np.int32)
+    if padded:
+        hw[1] = (96, 128)
+        canvas[1, 96:, :, :] = 0.0
+        canvas[1, :, 128:, :] = 0.0
+    orig = hw * 2 + 3  # rescaling to a made-up original size
+    return canvas, hw, orig
+
+
+def jax_images(canvas, hw, orig):
+    return JaxImageBatch(image=jnp.asarray(canvas), hw=jnp.asarray(hw),
+                         orig_hw=jnp.asarray(orig))
+
+
+def port_images(canvas, hw, orig):
+    return ImageBatch(image=torch.from_numpy(canvas),
+                      hw=torch.from_numpy(hw), orig_hw=torch.from_numpy(orig))
+
+
+def models(depth=14, stride_in_1x1=True):
+    """(jax model, perturbed jax params, port model with those weights)."""
+    key = (depth, stride_in_1x1)
+    if key not in _CACHE:
+        kw = tiny_kwargs(depth, stride_in_1x1)
+        jmodel = JaxRCNN(**kw)
+        variables = jmodel.init({"params": jax.random.PRNGKey(0)},
+                                jax_images(*inputs(False)), train=False)
+        params = _perturb(jax.device_get(variables["params"]))
+        port = GeneralizedRCNN(**kw).eval()
+        port.load_state_dict(state_dict_from_jax_params(params))
+        _CACHE[key] = (jmodel, params, port)
+    return _CACHE[key]
+
+
+def rel_err(a, b):
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
+
+
+def test_state_dict_matches_the_jax_exporter():
+    _, params, port = models()
+    ours = state_dict_from_jax_params(params)
+    theirs, _, skipped = export_d2_state(params)
+    assert not skipped
+    assert set(ours) == set(theirs) == set(port.state_dict())
+    for name, value in theirs.items():
+        np.testing.assert_array_equal(ours[name].numpy(), value, err_msg=name)
+
+
+def test_init_weights_is_seeded_and_follows_jax_initialisers():
+    a = init_weights(GeneralizedRCNN(**tiny_kwargs()),
+                     torch.Generator().manual_seed(3)).state_dict()
+    b = init_weights(GeneralizedRCNN(**tiny_kwargs()),
+                     torch.Generator().manual_seed(3)).state_dict()
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+    assert not a["backbone.res2.0.conv3.weight"].any()  # zero residual
+    assert torch.equal(a["affine_rpn.weight"], torch.ones(1, 64, 1, 1))
+    w = a["backbone.res3.0.conv2.weight"]  # He fan-out, truncated at 2 std
+    std = (2.0 / (w.shape[0] * 9)) ** 0.5 / 0.87962566103423978
+    assert float(w.abs().max()) <= 2 * std
+    assert 0.7 * std < float(w.std()) < 1.1 * std
+
+
+@pytest.mark.parametrize("depth", [14, 26])
+@pytest.mark.parametrize("stride_in_1x1", [True, False])
+def test_res4_and_res5_features_match_jax(depth, stride_in_1x1):
+    jmodel, params, port = models(depth, stride_in_1x1)
+    canvas, hw, orig = inputs(True)
+    jfeat = jmodel.apply({"params": params},
+                         jax_images(canvas, hw, orig),
+                         method=lambda m, im: m.compute_features(im)[0])
+    with torch.no_grad():
+        tfeat, _ = port.compute_features(port_images(canvas, hw, orig))
+    jf = np.asarray(jfeat)
+    assert rel_err(tfeat.permute(0, 2, 3, 1).numpy(), jf) < 1e-4
+
+    rng = np.random.RandomState(1)
+    xy = rng.uniform(0, [W - 40, H - 40], (2, 24, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 60, (2, 24, 2))],
+                           -1).astype(np.float32)
+    jpool = jmodel.apply(
+        {"params": params}, jnp.asarray(jf), jnp.asarray(boxes),
+        method=lambda m, f, b: m.roi_heads.pooled_features(f, b))
+    with torch.no_grad():
+        tpool = port.roi_heads.pooled_features(
+            torch.from_numpy(jf.copy()).permute(0, 3, 1, 2),
+            torch.from_numpy(boxes))
+    assert rel_err(tpool.numpy(), np.asarray(jpool)) < 1e-4
+
+
+def test_rpn_proposals_match_jax_on_the_same_head_outputs():
+    rng = np.random.RandomState(2)
+    fh, fw = H // 16, W // 16
+    cell = cell_anchors()
+    n = fh * fw * len(cell)
+    logits = rng.randn(2, n).astype(np.float32)
+    logits[0, 100:140] = logits[0, 99]  # a tie run
+    deltas = (rng.randn(2, n, 4) * 0.5).astype(np.float32)
+    hw = np.array([[H, W], [96, 128]], np.int32)
+    for pre, post in ((PRE_NMS, POST_NMS), (600, 1000)):
+        jp = jax_select(jnp.asarray(logits), jnp.asarray(deltas),
+                        jnp.asarray(cell), (fh, fw), 16, jnp.asarray(hw),
+                        pre_nms_topk=pre, post_nms_topk=post)
+        tp = select_top_proposals(torch.from_numpy(logits),
+                                  torch.from_numpy(deltas), cell, (fh, fw),
+                                  16, torch.from_numpy(hw), pre, post)
+        np.testing.assert_array_equal(tp.valid.numpy(), np.asarray(jp.valid))
+        # exp and the fused decode round differently in XLA: a few ulp
+        np.testing.assert_allclose(tp.boxes.numpy(), np.asarray(jp.boxes),
+                                   rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(tp.objectness.numpy(),
+                                      np.asarray(jp.objectness))
+
+
+def test_fast_rcnn_inference_matches_jax_on_the_same_head_outputs():
+    rng = np.random.RandomState(3)
+    b, p, k = 2, 300, NUM_CLASSES
+    logits = (rng.randn(b, p, k + 1) * 2).astype(np.float32)
+    deltas = (rng.randn(b, p, 4 * k) * 0.3).astype(np.float32)
+    xy = rng.uniform(0, [W - 40, H - 40], (b, p, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 60, (b, p, 2))],
+                           -1).astype(np.float32)
+    valid = rng.rand(b, p) > 0.1
+    hw = np.array([[H, W], [96, 128]], np.int32)
+    kw = dict(num_classes=k, topk_per_image=50, candidate_topk=400)
+    out = fast_rcnn_inference(torch.from_numpy(logits),
+                              torch.from_numpy(deltas),
+                              torch.from_numpy(boxes),
+                              torch.from_numpy(valid), torch.from_numpy(hw),
+                              **kw)
+    for i in range(b):
+        ref = jax_fast_rcnn_inference(
+            jnp.asarray(logits[i]), jnp.asarray(deltas[i]),
+            jnp.asarray(boxes[i]), jnp.asarray(valid[i]), jnp.asarray(hw[i]),
+            **kw)
+        np.testing.assert_array_equal(out[3][i].numpy(), np.asarray(ref[3]))
+        np.testing.assert_array_equal(out[2][i].numpy(), np.asarray(ref[2]))
+        np.testing.assert_allclose(out[1][i].numpy(), np.asarray(ref[1]),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(out[0][i].numpy(), np.asarray(ref[0]),
+                                   rtol=1e-6, atol=1e-4)
+
+
+def match_detections(a, b, iou_min=0.99, score_tol=1e-4):
+    """Every detection of ``a`` (boxes, scores, classes) has one in ``b``
+    with its class, IoU >= iou_min and a score within score_tol, and the
+    counts agree."""
+    ab, as_, ac = a
+    bb, bs, bc = b
+    assert len(ab) == len(bb), (len(ab), len(bb))
+    from tests.test_box_ops import np_iou
+
+    if not len(ab):
+        return
+    iou = np_iou(ab.astype(np.float64), bb.astype(np.float64))
+    ok = ((iou >= iou_min) & (ac[:, None] == bc[None, :])
+          & (np.abs(as_[:, None] - bs[None, :]) <= score_tol))
+    assert ok.any(axis=1).all(), f"{(~ok.any(axis=1)).sum()} unmatched"
+
+
+@pytest.mark.parametrize(
+    "depth,stride_in_1x1,padded",
+    [(14, True, False), (14, True, True), (14, False, True),
+     (26, True, True)],
+)
+def test_forward_inference_matches_jax(depth, stride_in_1x1, padded):
+    jmodel, params, port = models(depth, stride_in_1x1)
+    canvas, hw, orig = inputs(padded)
+    det = jax.device_get(jax.jit(functools.partial(jmodel.apply, train=False))(
+        {"params": params}, jax_images(canvas, hw, orig)))
+    with torch.no_grad():
+        tdet = port.forward_inference(port_images(canvas, hw, orig))
+    assert int(np.asarray(det.valid).sum()) > 10  # the comparison has teeth
+    for i in range(2):
+        jv = np.asarray(det.valid[i])
+        tv = tdet.valid[i].numpy()
+        match_detections(
+            (tdet.boxes[i].numpy()[tv], tdet.scores[i].numpy()[tv],
+             tdet.classes[i].numpy()[tv]),
+            (np.asarray(det.boxes[i])[jv], np.asarray(det.scores[i])[jv],
+             np.asarray(det.classes[i])[jv]),
+        )
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MODEL.META_ARCHITECTURE", "GeneralizedTextRCNN"),
+    ("MODEL.ROI_HEADS.NAME", "StandardROIHeads"),
+    ("MODEL.ROI_HEADS.OUTPUT_LAYER", "FastRCNNAttentionOutputLayers"),
+])
+def test_build_model_names_the_roadmap_item_of_what_is_not_ported(key,
+                                                                  value):
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        build_model,
+    )
+
+    cfg = get_cfg()
+    node = cfg
+    *path, leaf = key.split(".")
+    for part in path:
+        node = node[part]
+    node[leaf] = value
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        build_model(cfg)
