@@ -90,6 +90,23 @@ def nms_sorted_plain(
     return keep[:, :n]
 
 
+def tiles_visited(keep: torch.Tensor, max_keep: int | None = None):
+    """128-box tiles the sweep of ``nms_sorted_plain`` (and of the kernel)
+    visits per image, from its keep mask (B, N): all of them without
+    ``max_keep``, else those before the first tile whose start finds at
+    least ``max_keep`` boxes kept. Returns a list of B ints."""
+    b, n = keep.shape
+    ntiles = -(-n // TILE)
+    if max_keep is None:
+        return [ntiles] * b
+    kept = keep.long()
+    kept_before = torch.cumsum(kept, dim=1) - kept
+    stop = kept_before[:, ::TILE] >= max_keep  # (B, ntiles)
+    first = torch.where(stop.any(dim=1), stop.long().argmax(dim=1),
+                        torch.full((b,), ntiles, device=keep.device))
+    return [int(t) for t in first.tolist()]
+
+
 def _sorted_nms(boxes, valid, iou_threshold, max_keep):
     """Device switch (``ops.dispatch``): the CUDA kernel for a CUDA tensor,
     the plain version for a CPU tensor."""

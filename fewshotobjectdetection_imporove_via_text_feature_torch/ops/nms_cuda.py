@@ -1,9 +1,12 @@
-"""Greedy NMS as one hand-written CUDA kernel call (``csrc/nms.cu``).
+"""Greedy NMS as one call of the hand-written CUDA kernels in
+``csrc/nms.cu``: two launches per 1024-box chunk, all on the current stream.
 
 Replaces the JAX package's Pallas kernel ``_nms_kernel``
 (``ops/nms_pallas.py``); its plain version is ``ops.nms.nms_sorted_plain``,
 whose keep mask it reproduces bit for bit. The wrapper takes CUDA tensors
-only: it launches the kernel or raises.
+only: it launches the kernels or raises. ``nms_sorted_cuda.launches``
+counts calls, one per call; ``kernel_launches_per_call`` gives the kernel
+launches each makes.
 """
 
 from __future__ import annotations
@@ -14,20 +17,26 @@ import torch
 
 from . import cuda_build
 
-_BLOCK = 64
-
 
 def _lib():
     lib = cuda_build.load("nms")
-    fn = lib.fsod_nms_sorted
-    if fn.argtypes is None:
-        fn.argtypes = [
+    if lib.fsod_nms_sorted.argtypes is None:
+        lib.fsod_nms_sorted.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_int, ctypes.c_void_p,
         ]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.fsod_nms_sorted.restype = ctypes.c_int
+        lib.fsod_nms_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fsod_nms_scratch_bytes.restype = ctypes.c_longlong
+        lib.fsod_nms_launches.argtypes = [ctypes.c_int]
+        lib.fsod_nms_launches.restype = ctypes.c_int
+    return lib
+
+
+def kernel_launches_per_call(n: int) -> int:
+    """Kernel launches one ``nms_sorted_cuda`` call over N boxes makes."""
+    return _lib().fsod_nms_launches(n)
 
 
 def nms_sorted_cuda(boxes: torch.Tensor, valid: torch.Tensor,
@@ -49,13 +58,12 @@ def nms_sorted_cuda(boxes: torch.Tensor, valid: torch.Tensor,
         return keep
     boxes = boxes.contiguous()
     valid = valid.contiguous()
-    col_blocks = -(-n // _BLOCK)
-    mask = torch.empty((b, n, col_blocks), dtype=torch.int64,
-                       device=boxes.device)
-    fn = _lib()
+    lib = _lib()
+    scratch = torch.empty((lib.fsod_nms_scratch_bytes(b, n),),
+                          dtype=torch.uint8, device=boxes.device)
     with torch.cuda.device(boxes.device):
-        err = fn(
-            boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(),
+        err = lib.fsod_nms_sorted(
+            boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
             keep.data_ptr(), b, n, float(iou_threshold),
             -1 if max_keep is None else int(max_keep),
             torch.cuda.current_stream(boxes.device).cuda_stream,

@@ -94,7 +94,7 @@ def roi_sample_geometry(boxes: torch.Tensor, spatial_scale: float,
         wgt = torch.where(j[None, :] < g[:, None], 1.0, 0.0) / gs
         grid = (
             bins[None, :, None] + (j[None, None, :] + 0.5) / gs[:, :, None]
-        ).reshape(raw_size.shape[0], -1)  # (R, P'*cap)
+        ).reshape(raw_size.shape[0], p_out * cap)  # (R, P'*cap); R may be 0
         return grid, wgt
 
     grid_y, wy = axis(y2 - y1, sy)

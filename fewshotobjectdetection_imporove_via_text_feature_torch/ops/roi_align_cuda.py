@@ -3,7 +3,9 @@
 
 Replaces the JAX package's ``roi_align_mxu`` (``ops/roi_align_mxu.py``);
 its plain version is ``ops.roi_align.roi_align_plain``. The wrapper takes
-CUDA tensors only: it launches the kernel or raises.
+CUDA tensors only: it launches the kernel or raises. The kernel takes any
+C: it reads 8 channels a thread with 16-byte loads where C is a multiple of
+8 and the bases are 16-byte aligned, and channel by channel elsewhere.
 """
 
 from __future__ import annotations

@@ -32,6 +32,17 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align import
 from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align_cuda import (
     roi_align_cuda,
 )
+from test_torch_kernel_cases import (
+    NMS_CASES,
+    ROI_CASES,
+    nms_case,
+    roi_case,
+)
+
+ROI_TOLS = [
+    (torch.float32, dict(rtol=1e-5, atol=1e-5)),
+    (torch.bfloat16, dict(rtol=1e-2, atol=1e-2)),
+]
 
 pytestmark = pytest.mark.cuda
 
@@ -80,10 +91,16 @@ def test_dispatch_on_cuda_launches_the_kernel_unless_asked(card):
     assert torch.equal(k1, k2)
 
 
-@pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, dict(rtol=1e-5, atol=1e-5)),
-    (torch.bfloat16, dict(rtol=1e-2, atol=1e-2)),
-])
+@pytest.mark.parametrize("name", NMS_CASES)
+def test_nms_kernel_edge_cases_equal_plain(card, name):
+    boxes, valid, thresh, max_keep = nms_case(name)
+    boxes = torch.from_numpy(boxes).to(card)
+    valid = torch.from_numpy(valid).to(card)
+    got = nms_sorted_cuda(boxes, valid, thresh, max_keep)
+    assert torch.equal(got, nms_sorted_plain(boxes, valid, thresh, max_keep))
+
+
+@pytest.mark.parametrize("dtype,tol", ROI_TOLS)
 @pytest.mark.parametrize("p,stride,sampling", [
     (7, 2, 0), (7, 1, 0), (7, 1, 2), (1, 1, 0),
 ])
@@ -99,3 +116,58 @@ def test_roi_align_kernel_matches_plain(card, dtype, tol, p, stride,
     ref = roi_align_plain(feat, boxes, p, 1 / 16.0, sampling, stride)
     assert got.dtype == dtype and got.shape == ref.shape
     torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype,tol", ROI_TOLS)
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("name", ROI_CASES)
+def test_roi_align_kernel_edge_cases_match_plain(card, dtype, tol, layout,
+                                                 name):
+    feat, boxes, p, scale, sampling, stride = roi_case(name)
+    feat = torch.from_numpy(feat).to(card, dtype)
+    if layout == "channels_last":
+        feat = feat.contiguous(memory_format=torch.channels_last)
+    boxes = torch.from_numpy(boxes).to(card)
+    got = roi_align_cuda(feat, boxes, p, scale, sampling, stride)
+    ref = roi_align_plain(feat, boxes, p, scale, sampling, stride)
+    assert got.dtype == dtype and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    if name == "outside":
+        assert not got[:, :4].any()
+
+
+@pytest.mark.parametrize("dtype,tol", ROI_TOLS)
+def test_roi_align_kernel_reads_an_unaligned_base(card, dtype, tol):
+    """Channels-last features whose storage starts one element past a
+    16-byte boundary take the channel-by-channel loop."""
+    feat, boxes, p, scale, sampling, stride = roi_case("c1024")
+    b, c, h, w = feat.shape
+    flat = torch.empty(1 + feat.size, dtype=dtype, device=card)
+    nhwc = flat[1:].view(b, h, w, c)
+    nhwc.copy_(torch.from_numpy(feat).permute(0, 2, 3, 1))
+    feat = nhwc.permute(0, 3, 1, 2)
+    assert feat.data_ptr() % 16 and feat.is_contiguous(
+        memory_format=torch.channels_last)
+    boxes = torch.from_numpy(boxes).to(card)
+    got = roi_align_cuda(feat, boxes, p, scale, sampling, stride)
+    ref = roi_align_plain(feat, boxes, p, scale, sampling, stride)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+def test_roi_align_kernel_reads_past_2_31_elements_of_one_image(card):
+    """One bf16 image of 16400 x 16400 x 8 (2^31 + 4.4 M elements): ROIs
+    in its last rows read elements past the reach of a 32-bit offset."""
+    h = w = 16400
+    c = 8
+    assert h * w * c > 2 ** 31
+    gen = torch.Generator(device=card).manual_seed(5)
+    nhwc = torch.randn((1, h, w, c), generator=gen, device=card,
+                       dtype=torch.bfloat16)
+    feat = nhwc.permute(0, 3, 1, 2)  # channels-last view
+    boxes = torch.tensor([[[100.0, 16372.0, 160.0, 16396.0],
+                           [15000.0, 16370.0, 16390.0, 16399.0],
+                           [10.0, 10.0, 50.0, 40.0]]], device=card)
+    got = roi_align_cuda(feat, boxes, 7, 1.0, 2, 1)
+    ref = roi_align_plain(feat, boxes, 7, 1.0, 2, 1)
+    torch.testing.assert_close(got.float(), ref.float(), **ROI_TOLS[1][1])
+    assert got[:, :2].abs().sum() > 0
