@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card, with its
-hand-written CUDA kernels, and check what comes out.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card,
+with its hand-written CUDA kernels, and check what comes out.
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile DIR  # also profile one bf16 batch of
-                                         # 8; the table goes to DIR
+                                         # 8 and one bf16 train step of
+                                         # 16; the tables go to DIR
 
 Phases, each of which fails the run on error:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from csrc/ with nvcc, one process per source;
   3. greedy NMS: the kernel against its plain PyTorch version on the card,
      keep masks exactly equal, at both call sites' shapes, at 12288 boxes
-     and at the training RPN site; prints kept counts, 128-box tiles
-     visited and kernel launches per call;
+     and at the training RPN site (batch 2 and 16); prints kept counts,
+     128-box tiles visited and kernel launches per call;
   4. ROIAlignV2: the kernel against its plain version, float32 (TF32 off)
      and bfloat16, each within its stated tolerance, at the main path's
      launch shape (8 images x 256 ROIs), at 1000 ROIs on one image, and at
@@ -25,14 +26,32 @@ Phases, each of which fails the run on error:
      and read just after; both runs must show every kernel launched, NMS
      twice a forward (RPN proposals and final detections);
   6. phases 3 and 4 again on the main path's own inputs: the arguments of
-     every kernel call in one more bf16 predict_batch of 8, captured.
+     every kernel call in one more bf16 predict_batch of 8, captured;
+  7. the ROIAlign backward kernel against the autograd of the plain
+     version, float32 (TF32 off) within 1e-5 of the gradient's largest
+     value and bfloat16 within one bf16 step more, at the training launch
+     shape (16 images x 256 ROIs, P 7, bin_stride 2), at 1000 ROIs on one
+     image (P 7, bin_stride 1), at PCB's P=1, with C = 60 and with an
+     unaligned gradient;
+  8. the Trainer on the same config at full width on seeded weights and
+     synthetic 800x1344 batches (1-20 GT boxes an image): (a) float32,
+     batch 2, one step through the kernels against one through the plain
+     ops with the same generators (proposals and sampled ROIs equal, losses
+     within 1e-5, five gradients within 1e-4 of their largest values);
+     (b) bfloat16 at SOLVER.IMS_PER_BATCH 16, 2 warm-up and 10 timed
+     steps, every loss finite, launches per step NMS 1, ROIAlign forward
+     2 and backward 2; (c) phases 3, 4 and 7 again on the training path's
+     own inputs: the arguments of every kernel call in one more bf16 step,
+     captured.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
-Prints one JSON line with every kernel's numbers, then the card's name and
-power limit, then as the last line {"ok": true, "device": {...}}. Exits
+Prints one JSON line with every kernel's numbers (launches on the serving
+path of phase 5, or of phase 8 (b) for the backward, and launches per train
+step), then the card's name and power limit, then as the last line
+{"ok": true, "device": {...}}. Exits
 non-zero, with no result, when CUDA is absent or the package is missing.
 """
 
@@ -55,6 +74,17 @@ ROI_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # bfloat16 ROIAlign: both accumulate in f32 and round once to bf16, so they
 # differ by at most one bf16 step (2**-7 relative) where the sums straddle it
 ROI_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+# ROIAlign backward: float32 within 1e-5 of the gradient's largest value
+# (atomics add in a varying order); bf16 within one bf16 step more
+ROI_BWD_F32_ATOL = 1e-5
+ROI_BWD_BF16_RTOL = 2.0 ** -7
+# training step, float32, kernels vs plain ops
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4  # of each gradient's largest value
+TRAIN_GRADS = ("affine_rcnn.weight", "backbone.res4.0.conv3.weight",
+               "roi_heads.res5.0.conv3.weight",
+               "proposal_generator.rpn_head.conv.weight",
+               "roi_heads.box_predictor.cls_score.weight")
 # end to end, float32, kernels vs plain ops: a detection matches when a
 # detection of the other run has its class, IoU >= 0.9 and a score within
 # 1e-3; at least 95% of each run's detections must match, per image
@@ -181,6 +211,9 @@ def nms_inputs(gen):
         ("n12288", 2, 12288, 0.7, None, False, gen),
         ("train_rpn", 2, 12000, 0.7, 2000, False,
          torch.Generator().manual_seed(2)),
+        # the training RPN site at the config's IMS_PER_BATCH
+        ("train_rpn_b16", 16, 12000, 0.7, 2000, False,
+         torch.Generator().manual_seed(4)),
     ]
     out = []
     for name, b, n, thr, mk, class_offset, g in cases:
@@ -461,10 +494,16 @@ def _reset_counts():
         roi_align_cuda,
     )
 
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align_cuda import (
+        roi_align_bwd_cuda,
+    )
+
     nms_sorted_cuda.launches = 0
     roi_align_cuda.launches = 0
+    roi_align_bwd_cuda.launches = 0
     return lambda: {"greedy_nms": nms_sorted_cuda.launches,
-                    "roi_align_v2_fwd": roi_align_cuda.launches}
+                    "roi_align_v2_fwd": roi_align_cuda.launches,
+                    "roi_align_v2_bwd": roi_align_bwd_cuda.launches}
 
 
 def phase_predictor(profile_dir=None):
@@ -488,7 +527,7 @@ def phase_predictor(profile_dir=None):
     forwards = len(singles) + 1
     chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // cfg.TPU.ROI_CHUNK)
     want = {"greedy_nms": 2 * forwards,  # RPN proposals + final detections
-            "roi_align_v2_fwd": chunks * forwards}
+            "roi_align_v2_fwd": chunks * forwards, "roi_align_v2_bwd": 0}
     log(f"predictor: {os.path.relpath(CONFIG, ROOT)}, depth "
         f"{cfg.MODEL.RESNETS.DEPTH}, {ncls} classes, images 800x1333 -> "
         f"bucket {tuple(cfg.TPU.IMAGE_BUCKETS[-1])}")
@@ -535,41 +574,45 @@ def phase_predictor(profile_dir=None):
         f"image {[len(o['boxes']) for o in got]}; launches {counts}")
     if profile_dir:
         phase_profile(pred, batch, profile_dir)
-    return counts, capture_kernel_inputs(pred, batch)
+    return counts, capture_kernel_inputs(lambda: pred.predict_batch(batch))
 
 
-def capture_kernel_inputs(pred, batch):
-    """The arguments of every kernel call in one predict_batch, cloned:
-    {"nms": [(boxes, valid, iou, max_keep), ...], "roi_align": [...]}.
-    Each wrapper is wrapped for the one forward and restored after."""
+def capture_kernel_inputs(fn):
+    """The arguments of every kernel call that ``fn()`` makes, detached and
+    cloned (strides kept): {"nms": [(boxes, valid, iou, max_keep), ...],
+    "roi_align": [...], "roi_align_bwd": [...]}. Each wrapper is replaced
+    by a recording stand-in for the one call and restored after."""
     import torch
     from fewshotobjectdetection_imporove_via_text_feature_torch.ops import (
         nms_cuda,
         roi_align_cuda,
     )
 
-    calls = {"nms": [], "roi_align": []}
+    calls = {"nms": [], "roi_align": [], "roi_align_bwd": []}
+    sites = {"nms": (nms_cuda, "nms_sorted_cuda"),
+             "roi_align": (roi_align_cuda, "roi_align_cuda"),
+             "roi_align_bwd": (roi_align_cuda, "roi_align_bwd_cuda")}
 
-    def recording(kind, fn):
+    def recording(kind, wrapped):
         def call(*args):
             calls[kind].append(tuple(
-                a.clone() if isinstance(a, torch.Tensor) else a
+                a.detach().clone() if isinstance(a, torch.Tensor) else a
                 for a in args))
-            return fn(*args)
+            return wrapped(*args)
         # the wrapper counts its launches under its module-level name, which
         # is this stand-in while it is installed
         call.launches = 0
         return call
 
-    nms_fn, roi_fn = nms_cuda.nms_sorted_cuda, roi_align_cuda.roi_align_cuda
-    nms_cuda.nms_sorted_cuda = recording("nms", nms_fn)
-    roi_align_cuda.roi_align_cuda = recording("roi_align", roi_fn)
+    saved = {kind: getattr(mod, name) for kind, (mod, name) in sites.items()}
+    for kind, (mod, name) in sites.items():
+        setattr(mod, name, recording(kind, saved[kind]))
     try:
-        pred.predict_batch(batch)
+        fn()
         torch.cuda.synchronize()
     finally:
-        nms_cuda.nms_sorted_cuda = nms_fn
-        roi_align_cuda.roi_align_cuda = roi_fn
+        for kind, (mod, name) in sites.items():
+            setattr(mod, name, saved[kind])
     return calls
 
 
@@ -593,11 +636,364 @@ def phase_main_path_inputs(calls):
         f"site {nms['final']['ms']:.4f} ms")
 
 
+# ----------------------------------------------------------------- phase 7
+def roi_bwd_inputs(gen):
+    """Phase 7's cases: (key, (grad_out, boxes, feature shape, P, scale,
+    sampling, bin_stride)); the training launch shape first. Each in
+    float32 and bfloat16; grad_out is the (B, S, C, P', P') view of an NHWC
+    buffer, as the forward hands it back."""
+    import torch
+
+    cases = [  # (label, images, ROIs an image, C, H, W, P, stride, scale)
+        ("B16_R256_P7_s2", 16, 256, 1024, 50, 84, 7, 2, 1 / 16.0),
+        ("B1_R1000_P7_s1", 1, 1000, 1024, 50, 84, 7, 1, 1 / 16.0),
+        ("B1_R100_P1_res5", 1, 100, 2048, 25, 42, 1, 1, 1 / 32.0),
+        ("B2_R256_P7_s2_C60", 2, 256, 60, 50, 84, 7, 2, 1 / 16.0),
+        ("B2_R256_P7_s2_unaligned", 2, 256, 1024, 50, 84, 7, 2, 1 / 16.0),
+    ]
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, r, c, h, w, p, stride, scale in cases:
+            boxes = _roi_boxes(gen, b, r).cuda()
+            p_out = len(range(0, p, stride))
+            n = b * r * p_out * p_out * c
+            skew = 1 if label.endswith("unaligned") else 0
+            flat = torch.randn(n + skew, generator=gen).to("cuda", dtype)
+            g = flat[skew:].view(b, r, p_out, p_out, c).permute(0, 1, 4, 2, 3)
+            out.append((f"{str(dtype).split('.')[-1]}_{label}",
+                        (g, boxes, (b, c, h, w), p, scale, 0, stride)))
+    return out
+
+
+def check_roi_align_bwd(key, args, reps=10):
+    """The backward kernel against the autograd of the plain version (same
+    grad_out, same boxes), then timed as phase 4 times the forward; the
+    plain time is its backward pass alone."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align import (
+        roi_align_plain,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align_cuda import (
+        roi_align_bwd_cuda,
+    )
+
+    g, boxes, shape, p, scale, sampling, stride = args
+    b, c, h, w = shape
+    got = roi_align_bwd_cuda(*args)
+    feat = torch.zeros(shape, dtype=g.dtype, device="cuda",
+                       requires_grad=True)
+    out = roi_align_plain(feat, boxes, p, scale, sampling, stride)
+    ref = torch.autograd.grad(out, feat, g, retain_graph=True)[0]
+    torch.cuda.synchronize()
+    ref32 = ref.float()
+    err = float((got.float() - ref32).abs().max())
+    atol = ROI_BWD_F32_ATOL * float(ref32.abs().max())
+    rtol = ROI_BWD_BF16_RTOL if g.dtype == torch.bfloat16 else 0.0
+    if not torch.allclose(got.float(), ref32, rtol=rtol, atol=atol):
+        raise PhaseError(f"roi_align_bwd[{key}]: max abs err {err} outside "
+                         f"rtol {rtol}, atol {atol}")
+    ms = time_ms(lambda: roi_align_bwd_cuda(*args), reps)
+    g_ms = graph_ms(lambda: roi_align_bwd_cuda(*args), reps)
+    plain_ms = time_ms(lambda: torch.autograd.grad(out, feat, g,
+                                                   retain_graph=True), 3)
+    del out
+    esize = g.element_size()
+    map_elems = b * h * w * c
+    # the function's own bytes: grad_out and boxes read, the gradient of
+    # the map written
+    nbytes = g.numel() * esize + boxes.numel() * 4 + map_elems * esize
+    # this design's bytes: also a float32 map zeroed, accumulated (written)
+    # and read once to round it (bf16), or returned (float32)
+    f32_passes = 3 if g.dtype == torch.bfloat16 else 2
+    design_bytes = g.numel() * esize + boxes.numel() * 4 \
+        + map_elems * 4 * f32_passes \
+        + (map_elems * esize if g.dtype == torch.bfloat16 else 0)
+    spb = _samples_per_bin(boxes, h, w, p, stride, sampling, scale)
+    p_out = len(range(0, p, stride))
+    # 8 operations a bilinear sample: 4 taps, a multiply and an add each
+    ops = spb * b * boxes.shape[1] * p_out * p_out * c * 8.0
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F32_FLOPS * 1e3
+    res = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, max_abs_err=err,
+               bound_ms=max(bound_ops, bound_bytes),
+               bound_by="operations" if bound_ops >= bound_bytes
+               else "bytes",
+               design_bound_ms=design_bytes / HBM_BYTES_PER_S * 1e3)
+    log(f"roi_align_bwd[{key}] map {b}x{h}x{w}x{c}, {boxes.shape[1]} ROIs "
+        f"an image, {spb:.2f} samples a bin: max abs err {err:.3g} (gradient"
+        f" max {float(ref32.abs().max()):.3g}); kernel {ms:.4f} ms a call "
+        f"enqueued from Python ({g_ms:.4f} ms graph replay), plain "
+        f"{plain_ms:.3f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}), with this design's float32 buffer "
+        f"{res['design_bound_ms']:.4f} ms")
+    return res
+
+
+def phase_roi_align_bwd(gen):
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {key: check_roi_align_bwd(key, args)
+           for key, args in roi_bwd_inputs(gen)}
+    # each 256-ROI chunk's backward returns a full-size gradient of the
+    # map; autograd adds the two of a training step
+    a, b = (torch.zeros(16, 50, 84, 1024, dtype=torch.bfloat16,
+                        device="cuda").permute(0, 3, 1, 2) for _ in range(2))
+    add_ms = time_ms(lambda: a + b, 10)
+    log(f"roi_align_bwd: adding two chunks' bf16 16x1024x50x84 gradients "
+        f"(channels-last) {add_ms:.4f} ms, bound "
+        f"{3 * a.numel() * 2 / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    del a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------- phase 8
+def train_batches(seed, n_batches, batch, max_gt=100, num_classes=15,
+                  h=800, w=1333, bucket=(800, 1344)):
+    """Synthetic training batches at the 800x1344 bucket: the phase 5
+    images, zero-padded, and 1-20 GT boxes an image (32-400 px, classes in
+    [0, num_classes)) padded to ``max_gt``. CPU tensors."""
+    import numpy as np
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.structures import (
+        GTInstances,
+        ImageBatch,
+    )
+
+    rng = np.random.RandomState(seed)
+    images = _synthetic_images(seed, n_batches * batch, h, w)
+    out = []
+    for k in range(n_batches):
+        canvas = np.zeros((batch, *bucket, 3), np.uint8)
+        boxes = np.zeros((batch, max_gt, 4), np.float32)
+        classes = np.zeros((batch, max_gt), np.int32)
+        valid = np.zeros((batch, max_gt), bool)
+        for i in range(batch):
+            canvas[i, :h, :w] = images[k * batch + i]
+            n = rng.randint(1, 21)
+            wh = rng.uniform(32, 400, (n, 2))
+            xy = rng.uniform(0, 1, (n, 2)) * ([w, h] - wh)
+            boxes[i, :n] = np.concatenate([xy, xy + wh], 1)
+            classes[i, :n] = rng.randint(0, num_classes, n)
+            valid[i, :n] = True
+        hw = torch.tensor([[h, w]] * batch, dtype=torch.int32)
+        out.append((ImageBatch(torch.from_numpy(canvas), hw, hw.clone()),
+                    GTInstances(torch.from_numpy(boxes),
+                                torch.from_numpy(classes),
+                                torch.from_numpy(valid))))
+    return out
+
+
+def _train_cfg(out_dir, dtype, batch, max_iter):
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+
+    cfg = get_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.MODEL.WEIGHTS = ""  # no checkpoint in the repo: seeded weights
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.SOLVER.IMS_PER_BATCH = batch
+    cfg.SOLVER.MAX_ITER = max_iter
+    cfg.SEED = 0
+    cfg.OUTPUT_DIR = out_dir
+    return cfg
+
+
+def _fmt(d):
+    return {k: float(f"{v:.3g}") for k, v in d.items()}
+
+
+def _recording_sampler():
+    """Wrap the model's proposal sampler to keep its inputs and outputs;
+    returns (records, restore)."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        meta_arch,
+    )
+
+    records = []
+    fn = meta_arch.label_and_sample_proposals
+
+    def call(proposals, *args, **kwargs):
+        out = fn(proposals, *args, **kwargs)
+        records.append((proposals.boxes.clone(), proposals.valid.clone(),
+                        out["boxes"].clone(), out["valid"].clone()))
+        return out
+
+    meta_arch.label_and_sample_proposals = call
+    return records, lambda: setattr(meta_arch, "label_and_sample_proposals",
+                                    fn)
+
+
+def phase_train_f32(tmp):
+    """(a) float32, TF32 off, batch 2: one forward/backward through the
+    kernels and one through the plain ops, with the same generators."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+        step_generators,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops import (
+        plain_ops,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = _train_cfg(os.path.join(tmp, "f32"), "float32", 2, 1)
+    (images, gt), = train_batches(11, 1, 2)
+    trainer = Trainer(cfg, [(images, gt)])
+    model = trainer.model
+    images, gt = images.to("cuda"), gt.to("cuda")
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        losses = model.forward_train(
+            images, gt, *step_generators(trainer.seed, 0, "cuda"))
+        sum(v for k, v in losses.items()
+            if not k.startswith("metric/")).backward()
+        named = dict(model.named_parameters())
+        return losses, {n: named[n].grad.clone() for n in TRAIN_GRADS}
+
+    records, restore = _recording_sampler()
+    try:
+        read = _reset_counts()
+        got, got_g = run()
+        counts = read()
+        with plain_ops():
+            ref, ref_g = run()
+    finally:
+        restore()
+    torch.backends.cudnn.deterministic = False
+    (kp, kv, ks, ksv), (pp, pv, ps, psv) = records
+    if not (torch.equal(kp, pp) and torch.equal(kv, pv)
+            and torch.equal(ks, ps) and torch.equal(ksv, psv)):
+        raise PhaseError("train f32: proposals or sampled ROIs differ "
+                         "between the kernels and the plain ops")
+    worst = {}
+    for k in ref:
+        a, b = float(got[k].detach()), float(ref[k].detach())
+        worst[k] = abs(a - b) / max(abs(b), 1e-30)
+        if not k.startswith("metric/") and worst[k] > TRAIN_LOSS_RTOL:
+            raise PhaseError(f"train f32: {k} {a} vs plain {b}")
+    grad_err = {}
+    for n in TRAIN_GRADS:
+        scale = float(ref_g[n].abs().max())
+        grad_err[n] = float((got_g[n] - ref_g[n]).abs().max()) / scale
+        if not scale > 0 or grad_err[n] > TRAIN_GRAD_TOL:
+            raise PhaseError(f"train f32: gradient of {n} off by "
+                             f"{grad_err[n]:.3g} of its max {scale:.3g}")
+    losses = {k: round(float(v.detach()), 6) for k, v in got.items()}
+    log(f"train float32 batch 2, kernels vs plain ops: proposals "
+        f"({int(kv.sum())} valid) and sampled ROIs ({int(ksv.sum())} valid)"
+        f" equal; losses {losses}; relative loss differences "
+        f"{_fmt(worst)}; gradient differences / max {_fmt(grad_err)}; "
+        f"launches {counts}")
+    if counts != {"greedy_nms": 1, "roi_align_v2_fwd": 2,
+                  "roi_align_v2_bwd": 2}:
+        raise PhaseError(f"train f32: launches {counts}")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+
+def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
+    """(b) bfloat16 at IMS_PER_BATCH: Trainer.train over warm-up and timed
+    steps; the launch counters span the whole run. With ``profile_dir``,
+    one more step is profiled after it; then (c) one more is captured."""
+    import math
+    import statistics
+
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+    )
+
+    base = get_cfg()
+    base.merge_from_file(CONFIG)
+    batch = base.SOLVER.IMS_PER_BATCH
+    steps = warmup + timed
+    cfg = _train_cfg(os.path.join(tmp, "bf16"), "bfloat16", batch, steps)
+    data = train_batches(12, 2, batch)
+    trainer = Trainer(cfg, data)
+    stamps, bad = [], []
+
+    def hook(it):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses = trainer.last_losses
+        if not all(math.isfinite(float(v)) for v in losses.values()):
+            bad.append(it)
+
+    trainer.hooks.append(hook)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _reset_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read()
+    peak = torch.cuda.max_memory_allocated()
+    if bad:
+        raise PhaseError(f"train bf16: non-finite losses at steps {bad}")
+    want = {"greedy_nms": steps, "roi_align_v2_fwd": 2 * steps,
+            "roi_align_v2_bwd": 2 * steps}
+    if counts != want:
+        raise PhaseError(f"train bf16: launches {counts}, expected {want}")
+    step_s = [b - a for a, b in zip(stamps[warmup - 1:], stamps[warmup:])]
+    med = statistics.median(step_s)
+    last = {k: round(float(v), 5) for k, v in trainer.last_losses.items()}
+    log(f"train bfloat16 batch {batch} at 800x1344, R-101: {steps} steps in "
+        f"{wall:.2f} s (model_final saved); median step "
+        f"{med * 1e3:.2f} ms over steps {warmup}-{steps - 1} "
+        f"({batch / med:.2f} images/s), steps "
+        f"{[round(x * 1e3, 1) for x in step_s]} ms; peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches {counts} "
+        f"= per step {({k: v // steps for k, v in counts.items()})}; "
+        f"last losses {last}")
+    images, gt = (t.to("cuda") for t in data[0])
+    if profile_dir:
+        profile_call(f"bf16 train step, batch {batch}",
+                     lambda: trainer.train_step(images, gt, steps),
+                     profile_dir, f"profile_bf16_train_step_{batch}.txt")
+    phase_train_inputs(capture_kernel_inputs(
+        lambda: trainer.train_step(images, gt, steps + 1)))
+    del trainer
+    torch.cuda.empty_cache()
+    return {k: v // steps for k, v in counts.items()}, counts
+
+
+def phase_train_inputs(calls):
+    """(c) phases 3, 4 and 7 again on the training path's own inputs: the
+    RPN's sorted proposals (NMS), both 256-ROI chunks of sampled ROIs on the
+    res4 map (ROIAlign forward) and their gradients (backward), as one more
+    bf16 step of (b) handed them over."""
+    got = {k: len(v) for k, v in calls.items()}
+    if got != {"nms": 1, "roi_align": 2, "roi_align_bwd": 2}:
+        raise PhaseError(f"train bf16: captured kernel calls {got}")
+    nms = check_nms("train_path_rpn", *calls["nms"][0])
+    fwd = [check_roi_align(f"train_path_chunk{i}", args, ROI_BF16_TOL)
+           for i, args in enumerate(calls["roi_align"])]
+    bwd = [check_roi_align_bwd(f"train_path_chunk{i}", args)
+           for i, args in enumerate(calls["roi_align_bwd"])]
+    log(f"train path's inputs: NMS {nms['ms']:.4f} ms; ROIAlign forward "
+        f"{sum(r['ms'] for r in fwd):.4f} ms and backward "
+        f"{sum(r['ms'] for r in bwd):.4f} ms over 2 launches each, enqueued "
+        f"from Python")
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
     if "fsod_nms" in n:
         return "greedy_nms kernel"
+    if "fsod_roi_align_bwd" in n:
+        return "roi_align bwd kernel"
     if "fsod_roi_align" in n:
         return "roi_align kernel"
     if "conv" in n or "xmma" in n or "cudnn" in n or "implicit" in n:
@@ -611,9 +1007,9 @@ def _category(name: str) -> str:
     return "other"
 
 
-def phase_profile(pred, batch, out_dir):
-    """Device time by kernel of one bf16 predict_batch(8), with
-    torch.profiler; the full table goes to ``out_dir``."""
+def profile_call(label, fn, out_dir, filename):
+    """Device time by kernel of one call of ``fn``, with torch.profiler;
+    the full table goes to ``out_dir/filename``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -621,7 +1017,7 @@ def phase_profile(pred, batch, out_dir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict_batch(batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -635,20 +1031,28 @@ def phase_profile(pred, batch, out_dir):
             ours.setdefault(name, []).append(us)
     busy_ms = sum(by_cat.values()) / 1e3
     if busy_ms <= 0:
-        log("profile: the profiler saw no device time; not measured")
+        log(f"profile {label}: the profiler saw no device time; not "
+            "measured")
         return
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_bf16_batch8.txt"), "w") as f:
+    with open(os.path.join(out_dir, filename), "w") as f:
         f.write(prof.key_averages().table(
             sort_by="self_cuda_time_total", row_limit=60))
     shares = {k: round(v / 1e3, 3) for k, v in
               sorted(by_cat.items(), key=lambda kv: -kv[1])}
-    log(f"profile bf16 predict_batch(8): wall {wall * 1e3:.2f} ms, device "
-        f"busy {busy_ms:.2f} ms (idle share {1 - busy_ms / (wall * 1e3):.3f}"
-        f"), device ms by kind {shares}")
-    log("profile, this package's kernels (device ms, launches, us each): "
-        + str({k: (round(sum(t) / 1e3, 4), len(t), [round(u, 1) for u in t])
-               for k, t in sorted(ours.items())}))
+    log(f"profile {label}: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms (idle share {1 - busy_ms / (wall * 1e3):.3f}), "
+        f"device ms by kind {shares}")
+    log(f"profile {label}, this package's kernels (device ms, launches, us "
+        "each): " + str({k: (round(sum(t) / 1e3, 4), len(t),
+                             [round(u, 1) for u in t])
+                         for k, t in sorted(ours.items())}))
+
+
+def phase_profile(pred, batch, out_dir):
+    """One bf16 predict_batch(8), profiled."""
+    profile_call("bf16 predict_batch(8)", lambda: pred.predict_batch(batch),
+                 out_dir, "profile_bf16_batch8.txt")
 
 
 # ----------------------------------------------------------------- main
@@ -695,8 +1099,25 @@ def main(argv) -> int:
         profile_dir = os.path.abspath(argv[argv.index("--profile") + 1])
     counts, calls = phase_predictor(profile_dir)
     phase_main_path_inputs(calls)
+    bwd = phase_roi_align_bwd(gen)
+    kernels.append(dict(
+        name="roi_align_v2_bwd", route="cuda",
+        source="fewshotobjectdetection_imporove_via_text_feature_torch/csrc/roi_align.cu",
+        replaces="fewshotobjectdetection_imporove_via_text_feature_tpu/ops/roi_align_mxu.py:69",
+        launches=None, library_ms=None,
+        **{k: bwd["bfloat16_B16_R256_P7_s2"][k] for k in
+           ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_f32(tmp)
+        per_step, train_counts = phase_train_bf16(tmp,
+                                                  profile_dir=profile_dir)
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        # the serving path's launches (phase 5), or the training run's for
+        # the backward, which serving never launches
+        k["launches"] = counts[k["name"]] or train_counts[k["name"]]
+        k["launches_per_train_step"] = per_step[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,18 @@
+from .checkpointer import (
+    Checkpointer,
+    load_checkpoint_file,
+    load_jax_checkpoint,
+)
 from .convert import init_weights, state_dict_from_jax_params
+from .surgery import reset_optimizer, surgery_randinit, surgery_remove
 
-__all__ = ["init_weights", "state_dict_from_jax_params"]
+__all__ = [
+    "Checkpointer",
+    "load_checkpoint_file",
+    "load_jax_checkpoint",
+    "init_weights",
+    "state_dict_from_jax_params",
+    "reset_optimizer",
+    "surgery_randinit",
+    "surgery_remove",
+]

@@ -1,0 +1,150 @@
+"""Training checkpoints: save, load and resume, with a ``last_checkpoint``
+marker, and the JAX package's pickle checkpoints as a source of weights.
+
+Counterpart of the JAX package's ``checkpoint/checkpointer.py``. This
+package saves ``{"model", "optimizer", "scheduler", "iteration"}`` with
+``torch.save`` as ``<name>.pth``: written to a temporary file, synced and
+renamed, then the marker, so a kill mid-save never leaves a truncated file
+under a final name. ``save_async`` moves the write to one background
+thread after the tensors are copied to the host.
+
+``load_jax_checkpoint`` reads a JAX package pickle checkpoint (its
+``load_checkpoint_file``, copied here) without JAX: objects of jax, flax or
+optax classes (the optimizer state's containers) unpickle as inert
+stand-ins, numpy arrays as themselves, and any other class is refused; the
+flax params go through ``state_dict_from_jax_params``. An orbax directory
+checkpoint raises.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Any, Dict, Optional
+
+import torch
+
+from .convert import state_dict_from_jax_params
+
+_FOREIGN = ("jax", "jaxlib", "flax", "optax", "orbax")
+
+
+class _Foreign:
+    """Stand-in for an object of a JAX-side class inside a pickle: keeps
+    what it was built from and nothing else."""
+
+    def __init__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Numpy arrays and inert stand-ins for JAX-side classes; nothing else
+    (unpickling a class can run its code)."""
+
+    def find_class(self, module, name):
+        root = module.split(".")[0]
+        if root in _FOREIGN:
+            return type(name, (_Foreign,), {"__module__": module})
+        if root == "numpy":
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"a JAX package checkpoint holds no {module}.{name}")
+
+
+def load_checkpoint_file(path: str) -> Dict[str, Any]:
+    """A JAX package pickle checkpoint (``.ckpt``) as its dict of numpy
+    trees; raises for an orbax directory checkpoint."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: orbax directory checkpoints are not read by the "
+            "PyTorch package; save with TPU.CHECKPOINT_BACKEND 'pickle'"
+        )
+    with open(path, "rb") as f:
+        return _PortUnpickler(f).load()
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The model weights of a JAX package pickle checkpoint, as this
+    package's ``state_dict``."""
+    return state_dict_from_jax_params(load_checkpoint_file(path)["params"])
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _to_host(obj):
+    """A copy of ``obj`` with every tensor cloned to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+class Checkpointer:
+    def __init__(self, save_dir: str):
+        self.save_dir = save_dir
+        os.makedirs(save_dir, exist_ok=True)
+        self._writer = None
+        self._pending = None
+
+    def save(self, state: Dict[str, Any], name: str) -> str:
+        """Write ``state`` as ``<name>.pth`` and point the marker at it."""
+        path = os.path.join(self.save_dir, name + ".pth")
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            torch.save(state, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        marker = os.path.join(self.save_dir, "last_checkpoint")
+        with open(marker + ".tmp", "w") as f:
+            f.write(name + ".pth")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(marker + ".tmp", marker)
+        _fsync_dir(self.save_dir)
+        return path
+
+    def save_async(self, state: Dict[str, Any], name: str) -> None:
+        """``save`` on a background thread: the tensors are copied to the
+        host here, so the caller may go on updating them. Writes stay in
+        order; an error surfaces at the next save or at ``wait``."""
+        state = _to_host(state)
+        self.wait()
+        if self._writer is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._writer = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt-writer")
+        self._pending = self._writer.submit(self.save, state, name)
+
+    def wait(self) -> None:
+        """Drain an in-flight ``save_async``; re-raise its error."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def load(self, path: str, map_location="cpu") -> Dict[str, Any]:
+        """A checkpoint of this package (``.pth``)."""
+        return torch.load(path, map_location=map_location,
+                          weights_only=True)
+
+    def load_latest(self, map_location="cpu") -> Optional[Dict[str, Any]]:
+        self.wait()
+        marker = os.path.join(self.save_dir, "last_checkpoint")
+        if not os.path.exists(marker):
+            return None
+        with open(marker) as f:
+            name = f.read().strip()
+        return self.load(os.path.join(self.save_dir, name), map_location)

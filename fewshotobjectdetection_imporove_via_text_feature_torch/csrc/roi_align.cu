@@ -1,10 +1,12 @@
-// ROIAlignV2 forward (aligned=True), batched over images, for Hopper.
+// ROIAlignV2 (aligned=True), forward and backward, batched over images, for
+// Hopper.
 //
 // Replaces the JAX package's `roi_align_mxu`
 // (fewshotobjectdetection_imporove_via_text_feature_tpu/ops/roi_align_mxu.py),
-// an XLA interpolation-matrix form with no Pallas kernel, and its shared
-// sample plan `roi_sample_geometry` (ops/roi_align.py). Its plain version is
-// `roi_align_plain` in ops/roi_align.py of this package.
+// an XLA interpolation-matrix form with no Pallas kernel, its gradient (XLA's
+// autodiff of that form), and their shared sample plan `roi_sample_geometry`
+// (ops/roi_align.py). The plain versions are `roi_align_plain` in
+// ops/roi_align.py of this package and its autograd.
 // Features are NHWC (B, H, W, C) in f32 or bf16; boxes (B, S, 4) XYXY f32 in
 // image coordinates; output (B, S, P', P', C) with P' = len(range(0, P,
 // stride)), in the features' type, accumulated in f32.
@@ -19,22 +21,23 @@
 //   t outside [-1, size] adds nothing; else it is clamped to [0, size - 1]
 //   and read through the bilinear tent max(0, 1 - |t - pos|).
 //
-// What bounds it on the card: in the ideal, bytes (each feature read once,
-// each output written once: 0.04 ms for the main path's 8 x 256 ROIs on
-// 8x50x84x1024 bf16). A gather form is instead bound by the traffic of its
-// taps through L2 and L1 and by their latency: every output reads 4
+// Forward. What bounds it on the card: in the ideal, bytes (each feature
+// read once, each output written once: 0.04 ms for the main path's 8 x 256
+// ROIs on 8x50x84x1024 bf16). A gather form is instead bound by the traffic
+// of its taps through L2 and L1 and by their latency: every output reads 4
 // feature vectors a sample (about 15 at the main path's ROIs), pixels that
 // neighbouring samples share are read again, and working the sample plan
 // out again for every channel costs more than the interpolation itself.
 //
-// Design: one CTA per ROI.
+// Forward design: one CTA per ROI.
 //   1. The CTA's threads compute the ROI's samples once per axis, with
 //      roi_sample_geometry's roundings: for each (emitted bin, sample) its
 //      two tap pixels and weights (already scaled by 1/g), or that it lies
 //      outside the map. Then one thread per (axis, bin) merges the bin's
 //      taps into distinct pixels with summed weights (at most g + 1 when
 //      samples are at most a pixel apart, as adaptive sampling places
-//      them). Both go to shared memory.
+//      them). Both go to shared memory (`build_plan`, which the backward
+//      kernel shares).
 //   2. Each thread owns 8 neighbouring channels of every bin: one 16-byte
 //      load a tap in bf16 (two in f32), 8 f32 accumulators, one 16-byte
 //      store a bin (two in f32). A bin reads each of its distinct pixels
@@ -45,6 +48,24 @@
 //   3. Pixel offsets within an image are 32-bit while the image has fewer
 //      than 2^31 elements; a larger image takes the same kernel with 64-bit
 //      offsets (at the main path's shape the 64-bit form is 1.5x slower).
+//
+// Backward: grad_features[pixel] += w_y * w_x * grad_out[bin] over every
+// (bin, pixel) pair of the forward's merged plan, the exact adjoint of the
+// forward (only the emitted bins send gradient; samples outside the map
+// send none; clamped samples send theirs to the clamped pixels).
+// What bounds it: in the ideal, bytes (grad_out read once, the gradient of
+// the map written once); this first design also zeroes, accumulates into
+// and reads a float32 copy of the map, and its atomics are bound by L2's
+// atomic units, which overlapping ROIs contend for.
+// Backward design: one CTA per ROI builds the same plan in shared memory
+// (`build_plan`). Each thread owns 8 channels, 32 apart, so that each
+// atomic instruction of a warp covers 32 neighbouring floats (128 bytes):
+// it reads the bin's 8 grad_out values once and adds weight x value into a
+// zero-filled float32 NHWC buffer with atomicAdd for every pixel of the
+// bin. The wrapper rounds that buffer once to bf16 for a bf16 gradient, as
+// the plain version sums in f32 and rounds once. Lanes past C
+// are masked, so any C and any base take the same path; offsets are 32-bit
+// or 64-bit as in the forward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -189,15 +210,30 @@ __device__ __forceinline__ void store8(float* p, int n,
   }
 }
 
-template <typename T, bool kVector, typename Off>
-__global__ void __launch_bounds__(kMaxThreads) fsod_roi_align_fwd_kernel(
-    const T* __restrict__ feat, const float* __restrict__ boxes,
-    T* __restrict__ out, int s, int h, int w, int c, int p, int p_out,
-    int bin_stride, float scale, int sampling, int gmax_y, int gmax_x) {
-  extern __shared__ int4 smem[];
-  const int roi = blockIdx.x;  // image * s + roi-in-image
-  const int img = roi / s;
-  const float* bx = boxes + (size_t)roi * 4;
+// The ROI's merged sample plan in shared memory: per emitted bin of each
+// axis, its distinct pixels (element offsets in the image, a row offset on
+// y, a column offset on x) with their summed weights, and how many.
+template <typename Off>
+struct Plan {
+  const Pix<Off>* pix_y;  // bin by: pix_y[by * 2 * gmax_y + i], i < len_y[by]
+  const Pix<Off>* pix_x;
+  const int* len_y;
+  const int* len_x;
+};
+
+template <typename Off>
+size_t plan_smem_bytes(int p_out, int gmax_y, int gmax_x) {
+  return sizeof(Tap) * (size_t)p_out * (gmax_y + gmax_x) +
+         sizeof(Pix<Off>) * (size_t)p_out * 2 * (gmax_y + gmax_x) +
+         sizeof(int) * 2 * (size_t)p_out;
+}
+
+// Built by all the CTA's threads; ends with __syncthreads().
+template <typename Off>
+__device__ Plan<Off> build_plan(int4* smem, const float* bx, int h, int w,
+                                int c, int p, int p_out, int bin_stride,
+                                float scale, int sampling, int gmax_y,
+                                int gmax_x) {
   const Axis ay = make_axis(bx[1], bx[3], scale, p, sampling, gmax_y);
   const Axis ax = make_axis(bx[0], bx[2], scale, p, sampling, gmax_x);
   const int ny = p_out * ay.g;
@@ -256,6 +292,22 @@ __global__ void __launch_bounds__(kMaxThreads) fsod_roi_align_fwd_kernel(
   }
   __syncthreads();
 
+  return Plan<Off>{pix_y, pix_x, len_y, len_x};
+}
+
+template <typename T, bool kVector, typename Off>
+__global__ void __launch_bounds__(kMaxThreads) fsod_roi_align_fwd_kernel(
+    const T* __restrict__ feat, const float* __restrict__ boxes,
+    T* __restrict__ out, int s, int h, int w, int c, int p, int p_out,
+    int bin_stride, float scale, int sampling, int gmax_y, int gmax_x) {
+  extern __shared__ int4 smem[];
+  const int roi = blockIdx.x;  // image * s + roi-in-image
+  const int img = roi / s;
+  const Plan<Off> plan =
+      build_plan<Off>(smem, boxes + (size_t)roi * 4, h, w, c, p, p_out,
+                      bin_stride, scale, sampling, gmax_y, gmax_x);
+  using P = Pix<Off>;
+
   // 2. each thread: 8 channels of every bin, each distinct pixel read once
   // a bin (rows contracted along x first)
   const T* base = feat + (size_t)img * h * w * c;
@@ -266,11 +318,11 @@ __global__ void __launch_bounds__(kMaxThreads) fsod_roi_align_fwd_kernel(
     const int nc = min(kVec, c - c0);
     const T* f = base + c0;
     for (int by = 0; by < p_out; ++by) {
-      const P* ly = pix_y + by * 2 * gmax_y;
-      const int ny_b = len_y[by];
+      const P* ly = plan.pix_y + by * 2 * gmax_y;
+      const int ny_b = plan.len_y[by];
       for (int bxi = 0; bxi < p_out; ++bxi) {
-        const P* lx = pix_x + bxi * 2 * gmax_x;
-        const int nx_b = len_x[bxi];
+        const P* lx = plan.pix_x + bxi * 2 * gmax_x;
+        const int nx_b = plan.len_x[bxi];
         float acc[kVec];
 #pragma unroll
         for (int k = 0; k < kVec; ++k) acc[k] = 0.0f;
@@ -319,9 +371,7 @@ int launch(const void* feat, const float* boxes, void* out, int b, int h,
   const int cap_x = max(1, (w + p - 1) / p);
   const int gy = sampling > 0 ? sampling : cap_y;  // most samples a bin
   const int gx = sampling > 0 ? sampling : cap_x;
-  const size_t smem = sizeof(Tap) * (size_t)p_out * (gy + gx) +
-                      sizeof(Pix<Off>) * (size_t)p_out * 2 * (gy + gx) +
-                      sizeof(int) * 2 * (size_t)p_out;
+  const size_t smem = plan_smem_bytes<Off>(p_out, gy, gx);
   const int groups = (c + kVec - 1) / kVec;
   const int threads = min(kMaxThreads, max(32, (groups + 31) / 32 * 32));
   // 8 channels of either type are 16 or 32 bytes: C % 8 keeps every pixel
@@ -339,6 +389,96 @@ int launch(const void* feat, const float* boxes, void* out, int b, int h,
   kernel<<<(unsigned)(b * s), threads, smem, stream>>>(
       static_cast<const T*>(feat), boxes, static_cast<T*>(out), s, h, w, c,
       p, p_out, bin_stride, scale, sampling, gy, gx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// channels of one warp in the backward: 32 lanes x kVec channels, 32 apart
+constexpr int kWarpChannels = 32 * kVec;
+
+template <typename T, typename Off>
+__global__ void __launch_bounds__(kMaxThreads) fsod_roi_align_bwd_kernel(
+    const T* __restrict__ grad_out, const float* __restrict__ boxes,
+    float* __restrict__ grad, int s, int h, int w, int c, int p, int p_out,
+    int bin_stride, float scale, int sampling, int gmax_y, int gmax_x) {
+  extern __shared__ int4 smem[];
+  const int roi = blockIdx.x;  // image * s + roi-in-image
+  const int img = roi / s;
+  const Plan<Off> plan =
+      build_plan<Off>(smem, boxes + (size_t)roi * 4, h, w, c, p, p_out,
+                      bin_stride, scale, sampling, gmax_y, gmax_x);
+  using P = Pix<Off>;
+
+  // each thread: channels c0 + lane + 32 k (k < 8) of every bin; every
+  // (row, column) pixel pair of the bin gets weight_y * weight_x * grad
+  float* base = grad + (size_t)img * h * w * c;
+  const T* gbase = grad_out + (size_t)roi * p_out * p_out * c;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int c0 = (threadIdx.x >> 5) * kWarpChannels; c0 < c;
+       c0 += warps * kWarpChannels) {
+    const int ch = c0 + lane;
+    for (int bin = 0; bin < p_out * p_out; ++bin) {
+      const int by = bin / p_out;
+      const int bxi = bin - by * p_out;
+      const int ny_b = plan.len_y[by];
+      const int nx_b = plan.len_x[bxi];
+      if (ny_b == 0 || nx_b == 0) continue;
+      const T* gp = gbase + (size_t)bin * c + ch;
+      float g[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        g[k] = ch + 32 * k < c ? to_f32(gp[32 * k]) : 0.0f;
+      const P* ly = plan.pix_y + by * 2 * gmax_y;
+      const P* lx = plan.pix_x + bxi * 2 * gmax_x;
+      for (int iy = 0; iy < ny_b; ++iy) {
+        const P py = ly[iy];
+        float* row = base + py.off + ch;
+        for (int ix = 0; ix < nx_b; ++ix) {
+          const P px = lx[ix];
+          const float wgt = __fmul_rn(py.w, px.w);
+          float* dst = row + px.off;
+#pragma unroll
+          for (int k = 0; k < kVec; ++k)
+            if (ch + 32 * k < c) atomicAdd(dst + 32 * k, __fmul_rn(wgt, g[k]));
+        }
+      }
+    }
+  }
+}
+
+template <typename T, typename Off>
+int launch_bwd(const void* grad_out, const float* boxes, float* grad32,
+               int b, int h, int w, int c, int s, int p, int bin_stride,
+               float scale, int sampling, cudaStream_t stream) {
+  const int64_t n = (int64_t)b * h * w * c;
+  if (n == 0) return 0;
+  cudaError_t err =
+      cudaMemsetAsync(grad32, 0, (size_t)n * sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int p_out = (p + bin_stride - 1) / bin_stride;
+  if ((int64_t)s * p_out * p_out > 0) {
+    const int cap_y = max(1, (h + p - 1) / p);
+    const int cap_x = max(1, (w + p - 1) / p);
+    const int gy = sampling > 0 ? sampling : cap_y;
+    const int gx = sampling > 0 ? sampling : cap_x;
+    const size_t smem = plan_smem_bytes<Off>(p_out, gy, gx);
+    const int warps = (c + kWarpChannels - 1) / kWarpChannels;
+    const int threads = min(kMaxThreads, 32 * warps);
+    auto kernel = &fsod_roi_align_bwd_kernel<T, Off>;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<(unsigned)(b * s), threads, smem, stream>>>(
+        static_cast<const T*>(grad_out), boxes, grad32, s, h, w, c, p, p_out,
+        bin_stride, scale, sampling, gy, gx);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -364,5 +504,33 @@ extern "C" int fsod_roi_align_fwd(const void* feat, int dtype,
                 : launch<__nv_bfloat16, int>(feat, boxes, out, b, h, w, c, s,
                                              p, bin_stride, scale, sampling,
                                              st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradient of fsod_roi_align_fwd with respect to the features.
+// grad_out (B, S, P', P', C) in the features' type (dtype 0 = float32,
+// 1 = bfloat16); grad32 the float32 (B, H, W, C) gradient, zeroed here and
+// summed into with atomics (the caller rounds it once to bfloat16).
+extern "C" int fsod_roi_align_bwd(const void* grad_out, int dtype,
+                                  const float* boxes, float* grad32, int b,
+                                  int h, int w, int c, int s, int p,
+                                  int bin_stride, float scale, int sampling,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = (int64_t)h * w * c > INT32_MAX;
+  if (dtype == 0)
+    return wide ? launch_bwd<float, long long>(grad_out, boxes, grad32, b, h,
+                                               w, c, s, p, bin_stride, scale,
+                                               sampling, st)
+                : launch_bwd<float, int>(grad_out, boxes, grad32, b, h, w, c,
+                                         s, p, bin_stride, scale, sampling,
+                                         st);
+  if (dtype == 1)
+    return wide ? launch_bwd<__nv_bfloat16, long long>(
+                      grad_out, boxes, grad32, b, h, w, c, s, p, bin_stride,
+                      scale, sampling, st)
+                : launch_bwd<__nv_bfloat16, int>(grad_out, boxes, grad32, b,
+                                                 h, w, c, s, p, bin_stride,
+                                                 scale, sampling, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

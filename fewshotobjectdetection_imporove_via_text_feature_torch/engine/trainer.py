@@ -1,0 +1,241 @@
+"""The training step and the training loop.
+
+Counterpart of the JAX package's ``engine/trainer.py``. ``make_train_step``
+is one step: forward (``GeneralizedRCNN.forward_train``), the total of the
+non-``metric/`` losses, backward, gradient clipping, SGD and the LR
+schedule. ``COMPUTE_DTYPE`` bfloat16 runs through the modules' own casts
+over float32 master weights, as the serving path does; there is no
+autocast. Each step's anchor/ROI sampling and cls dropout draw from two
+generators seeded from the run's seed and the iteration.
+
+``Trainer`` runs the loop on ``cfg.MODEL.DEVICE`` ("cuda" by default, and
+it raises when CUDA is absent) over an iterable of ``(ImageBatch,
+GTInstances)`` batches: it saves every ``SOLVER.CHECKPOINT_PERIOD`` steps
+and ``model_final`` at the end, resumes the iteration, optimizer and
+scheduler from the newest checkpoint, and on SIGTERM saves and stops. The
+data loader, multi-device training and on-device preprocessing are not in
+this package yet and their options raise.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import time
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from ..checkpoint import Checkpointer, init_weights, load_jax_checkpoint
+from ..models import build_model
+from ..solver import build_gradient_clipper, build_optimizer, build_scheduler
+from .predictor import resolve_device
+
+# options of the JAX trainer that this package does not have yet:
+# (key, the value that is honoured, where ROADMAP.md puts the rest)
+_NOT_PORTED = (
+    ("TPU.DEVICE_PREPROCESS", False,
+     "Queue 1 item 14 (on-device preprocessing)"),
+    ("TPU.MODEL_PARALLEL", 1, "Queue 1 item 15 (multi-device)"),
+    ("TPU.SPATIAL_PARTITION", 1, "Queue 1 item 15 (multi-device)"),
+    ("TPU.CHECKPOINT_BACKEND", "pickle", "Queue 1 item 8 (orbax checkpoints)"),
+    ("TPU.DEBUG_NANS", False, "Queue 1 item 8 (NaN debugging)"),
+    ("TPU.PROFILE_START_STEP", -1, "Queue 1 item 8 (training profiles)"),
+)
+
+
+def check_training_config(cfg) -> None:
+    """Raise for a training option this package does not honour."""
+    for dotted, ok, where in _NOT_PORTED:
+        node = cfg
+        for part in dotted.split("."):
+            node = node[part]
+        if node != ok:
+            raise NotImplementedError(
+                f"{dotted} = {node!r} is not ported to the PyTorch package "
+                f"yet: ROADMAP.md {where}"
+            )
+
+
+def default_setup(cfg) -> int:
+    """Create OUTPUT_DIR, write the config there, and return the seed:
+    SEED when it is >= 0, else a random one."""
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+        f.write(cfg.dump())
+    if cfg.SEED >= 0:
+        return int(cfg.SEED)
+    return int.from_bytes(os.urandom(3), "little")
+
+
+def step_generators(seed: int, step: int, device):
+    """(sampling, dropout) ``torch.Generator``s on ``device`` for one step,
+    seeded from (seed, step): a step draws the same numbers again on resume."""
+    a, b = np.random.SeedSequence([seed, step]).generate_state(2)
+    return (torch.Generator(device=device).manual_seed(int(a)),
+            torch.Generator(device=device).manual_seed(int(b)))
+
+
+def make_train_step(model, optimizer, scheduler=None, clip=None,
+                    seed: int = 0):
+    """Returns ``train_step(images, gt, step) -> losses``: one SGD step of
+    ``model`` on a batch already on the model's device; the losses come back
+    detached, with ``total_loss``."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def train_step(images, gt, step: int):
+        device = images.image.device
+        sampling, dropout = step_generators(seed, step, device)
+        losses = model.forward_train(images, gt, sampling, dropout)
+        total = sum(v for k, v in losses.items()
+                    if not k.startswith("metric/"))
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        if clip is not None:
+            clip(params)
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        out = {k: v.detach() for k, v in losses.items()}
+        out["total_loss"] = total.detach()
+        return out
+
+    return train_step
+
+
+class Trainer:
+    """cfg + an iterable of ``(ImageBatch, GTInstances)`` batches -> a
+    trained model. ``device`` overrides ``cfg.MODEL.DEVICE``;
+    ``state_dict`` gives starting weights (else MODEL.WEIGHTS, a JAX package
+    ``.ckpt`` or this package's ``.pth``; else weights from the seed)."""
+
+    def __init__(self, cfg, data: Iterable, device=None, state_dict=None):
+        check_training_config(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(cfg, device)
+        self.data = data
+        self.seed = default_setup(cfg)
+        model = build_model(cfg)
+        init_weights(model, torch.Generator().manual_seed(self.seed))
+        if state_dict is None and cfg.MODEL.WEIGHTS:
+            state_dict = self._weights(cfg.MODEL.WEIGHTS)
+        if state_dict is not None:
+            # keys the weights lack (a predictor removed by surgery) keep
+            # their seeded values
+            unexpected = model.load_state_dict(
+                state_dict, strict=False).unexpected_keys
+            if unexpected:
+                raise ValueError(f"weights with no parameter: {unexpected}")
+        self.model = model.to(self.device).train()
+        self.optimizer = build_optimizer(cfg, self.model)
+        self.scheduler = build_scheduler(cfg, self.optimizer)
+        self.train_step = make_train_step(
+            self.model, self.optimizer, self.scheduler,
+            build_gradient_clipper(cfg), self.seed)
+        self.checkpointer = Checkpointer(cfg.OUTPUT_DIR)
+        self.start_iter = 0
+        self.max_iter = cfg.SOLVER.MAX_ITER
+        self.hooks = []  # callables hook(iteration), after each step
+        self.last_losses = {}  # the latest step's, detached
+        self.preempted = False
+
+    @staticmethod
+    def _weights(path):
+        if path.endswith(".ckpt"):
+            return load_jax_checkpoint(path)
+        if path.endswith(".pth"):
+            return torch.load(path, map_location="cpu",
+                              weights_only=True)["model"]
+        raise NotImplementedError(
+            f"MODEL.WEIGHTS {path!r}: importing ImageNet (Caffe2 .pkl) and "
+            "detectron2 weights is ROADMAP.md Queue 1 item 8; pass "
+            "state_dict=, a JAX package .ckpt or a checkpoint of this "
+            "package (.pth)"
+        )
+
+    def resume_or_load(self, resume: bool = True) -> None:
+        """With ``resume``, restore the model, optimizer, scheduler and
+        iteration from the newest checkpoint in OUTPUT_DIR, if any."""
+        if not resume:
+            return
+        loaded = self.checkpointer.load_latest(map_location=self.device)
+        if loaded is None:
+            return
+        self.model.load_state_dict(loaded["model"])
+        if "optimizer" in loaded:
+            self.optimizer.load_state_dict(loaded["optimizer"])
+        if "scheduler" in loaded:
+            self.scheduler.load_state_dict(loaded["scheduler"])
+        self.start_iter = int(loaded["iteration"]) + 1
+
+    def _batches(self):
+        while True:
+            empty = True
+            for batch in self.data:
+                empty = False
+                yield batch
+            if empty:
+                raise ValueError("Trainer: the data iterable gave no batch")
+
+    def train(self):
+        """Run from ``start_iter`` to ``SOLVER.MAX_ITER``; returns the last
+        step's losses."""
+        cfg = self.cfg
+        self.preempted = False
+
+        def on_term(signum, frame):
+            self.preempted = True
+
+        try:
+            prev = signal.signal(signal.SIGTERM, on_term)
+        except ValueError:  # not the main thread: no handler
+            prev = None
+        batches = self._batches()
+        losses, it, t_last = {}, self.start_iter, time.time()
+        try:
+            while it < self.max_iter:
+                images, gt = next(batches)
+                losses = self.train_step(images.to(self.device),
+                                         gt.to(self.device), it)
+                self.last_losses = losses
+                if it % 20 == 0 or it == self.max_iter - 1:
+                    now = time.time()
+                    self._log(it, {**{k: float(v) for k, v in losses.items()},
+                                   "lr": self.optimizer.param_groups[0]["lr"],
+                                   "time_since_last_log": now - t_last})
+                    t_last = now
+                period = cfg.SOLVER.CHECKPOINT_PERIOD
+                if period > 0 and (it + 1) % period == 0:
+                    self.save(it)
+                for hook in self.hooks:
+                    hook(it)
+                if self.preempted:
+                    # a consistent post-step state: resume starts at it + 1
+                    self.save(it)
+                    break
+                it += 1
+            if not self.preempted:
+                self.save(self.max_iter - 1, name="model_final")
+        finally:
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)
+            self.checkpointer.wait()
+        return losses
+
+    def save(self, iteration: int, name=None) -> None:
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "scheduler": self.scheduler.state_dict(),
+                 "iteration": iteration}
+        name = name or f"model_{iteration:07d}"
+        if self.cfg.TPU.ASYNC_CHECKPOINT:
+            self.checkpointer.save_async(state, name)
+        else:
+            self.checkpointer.save(state, name)
+
+    def _log(self, iteration: int, values) -> None:
+        with open(os.path.join(self.cfg.OUTPUT_DIR, "metrics.json"),
+                  "a") as f:
+            f.write(json.dumps({"iteration": iteration, **values}) + "\n")

@@ -9,12 +9,21 @@ from .backbone import (
 from .build import build_model
 from .fast_rcnn import (
     FastRCNNOutputLayers,
+    cls_dropout,
     fast_rcnn_inference,
+    fast_rcnn_losses,
     rescale_detections,
 )
 from .meta_arch import AffineLayer, GeneralizedRCNN
-from .roi_heads import Res5ROIHeads
-from .rpn import RPNHead, cell_anchors, generate_anchors, select_top_proposals
+from .roi_heads import Res5ROIHeads, label_and_sample_proposals
+from .rpn import (
+    RPNHead,
+    cell_anchors,
+    generate_anchors,
+    label_and_sample_anchors,
+    rpn_losses,
+    select_top_proposals,
+)
 
 __all__ = [
     "RESNET_STAGES",
@@ -25,13 +34,18 @@ __all__ = [
     "ResStage",
     "build_model",
     "FastRCNNOutputLayers",
+    "cls_dropout",
     "fast_rcnn_inference",
+    "fast_rcnn_losses",
     "rescale_detections",
     "AffineLayer",
     "GeneralizedRCNN",
     "Res5ROIHeads",
+    "label_and_sample_proposals",
     "RPNHead",
     "cell_anchors",
     "generate_anchors",
+    "label_and_sample_anchors",
+    "rpn_losses",
     "select_top_proposals",
 ]

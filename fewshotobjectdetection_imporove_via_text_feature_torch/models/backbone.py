@@ -148,15 +148,16 @@ class ResNetC4(nn.Module):
             cin = cout
 
     def forward(self, x):
-        x = self.stem(x.to(self.dtype))
-        if self.freeze_at >= 1:
-            x = x.detach()
+        # detectron2 freeze semantics (the stem is stage 1, res2 stage 2):
+        # stages up to freeze_at pass no gradient, so they run without
+        # autograd and keep no activations for a backward pass
+        grad = torch.is_grad_enabled()
+        with torch.set_grad_enabled(grad and self.freeze_at < 1):
+            x = self.stem(x.to(self.dtype))
         feats = {}
         for idx, name in enumerate(self.stage_names):
-            x = getattr(self, name)(x)
-            # detectron2 freeze semantics: stage index 2 is res2
-            if self.freeze_at >= idx + 2:
-                x = x.detach()
+            with torch.set_grad_enabled(grad and self.freeze_at < idx + 2):
+                x = getattr(self, name)(x)
             feats[name] = x
         return feats
 

@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``models/build.py``. This package has the
 flagship DeFRCN detector so far: ``GeneralizedRCNN`` with ``Res5ROIHeads``
-and ``FastRCNNOutputLayers``. Any other meta-architecture, ROI head or
-output layer raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+and ``FastRCNNOutputLayers``, for inference and training. Any other
+meta-architecture, ROI head or output layer, and any training key this
+package does not honour, raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -40,7 +41,10 @@ _FIXED_AT_DEFAULT = (
 # does not have yet: StandardROIHeads has its own item, every other one
 # (the semantic, distillation and text meta-archs, heads and output
 # layers) is in the text-families item
-_LATER = {"StandardROIHeads": "Queue 1 item 13 (StandardROIHeads)"}
+_LATER = {
+    "StandardROIHeads": "Queue 1 item 13 (StandardROIHeads)",
+    "TPU.REMAT_BACKBONE": "Queue 1 item 8 (training: activation recompute)",
+}
 _LATER_DEFAULT = "Queue 1 item 10 (text, semantic and distill families)"
 
 
@@ -60,8 +64,9 @@ def _not_ported(what: str, name: str):
 
 def build_model(cfg):
     """cfg -> ``GeneralizedRCNN`` with float32 parameters on the CPU (the
-    caller moves it to its device); reads what inference needs, as the JAX
-    package's ``_common_kwargs`` does."""
+    caller moves it to its device); reads what inference and training need,
+    as the JAX package's ``_common_kwargs`` does (ROI_HEADS.FREEZE_FEAT is
+    the optimizer's, as there)."""
     from .meta_arch import GeneralizedRCNN
 
     for dotted, want in _FIXED_AT_DEFAULT:
@@ -78,9 +83,12 @@ def build_model(cfg):
     if cfg.MODEL.ROI_HEADS.OUTPUT_LAYER != "FastRCNNOutputLayers":
         raise _not_ported("ROI_HEADS.OUTPUT_LAYER",
                           cfg.MODEL.ROI_HEADS.OUTPUT_LAYER)
+    if cfg.TPU.REMAT_BACKBONE:
+        raise _not_ported("training option", "TPU.REMAT_BACKBONE")
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         cfg.TPU.COMPUTE_DTYPE]
     freeze_at = 4 if cfg.MODEL.BACKBONE.FREEZE else cfg.MODEL.BACKBONE.FREEZE_AT
+    rpn, roi = cfg.MODEL.RPN, cfg.MODEL.ROI_HEADS
     return GeneralizedRCNN(
         num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
         rpn_enable_decouple=cfg.MODEL.RPN.ENABLE_DECOUPLE,
@@ -94,6 +102,8 @@ def build_model(cfg):
         stride_in_1x1=cfg.MODEL.RESNETS.STRIDE_IN_1X1,
         elide_strided_bins=cfg.TPU.ELIDE_STRIDED_BINS,
         freeze_at=freeze_at,
+        freeze_backbone=cfg.MODEL.BACKBONE.FREEZE,
+        freeze_rpn=rpn.FREEZE,
         anchor_sizes=tuple(cfg.MODEL.ANCHOR_GENERATOR.SIZES[0]),
         anchor_aspect_ratios=tuple(
             cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS[0]),
@@ -101,14 +111,27 @@ def build_model(cfg):
                           cfg.MODEL.RPN.PRE_NMS_TOPK_TEST),
         rpn_post_nms_topk=(cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN,
                            cfg.MODEL.RPN.POST_NMS_TOPK_TEST),
-        rpn_nms_thresh=cfg.MODEL.RPN.NMS_THRESH,
-        rpn_bbox_reg_weights=tuple(cfg.MODEL.RPN.BBOX_REG_WEIGHTS),
+        rpn_nms_thresh=rpn.NMS_THRESH,
+        rpn_batch_per_image=rpn.BATCH_SIZE_PER_IMAGE,
+        rpn_positive_fraction=rpn.POSITIVE_FRACTION,
+        rpn_iou_thresholds=tuple(rpn.IOU_THRESHOLDS),
+        rpn_smooth_l1_beta=rpn.SMOOTH_L1_BETA,
+        rpn_bbox_reg_weights=tuple(rpn.BBOX_REG_WEIGHTS),
+        rpn_loss_weight=rpn.LOSS_WEIGHT,
+        rpn_bbox_reg_loss_weight=rpn.BBOX_REG_LOSS_WEIGHT,
         rpn_min_size=cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE,
+        roi_batch_per_image=roi.BATCH_SIZE_PER_IMAGE,
+        roi_positive_fraction=roi.POSITIVE_FRACTION,
+        roi_iou_threshold=roi.IOU_THRESHOLDS[0],
+        proposal_append_gt=roi.PROPOSAL_APPEND_GT,
         roi_chunk=cfg.TPU.ROI_CHUNK,
         pooler_resolution=cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION,
         sampling_ratio=cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO,
         box_reg_weights=tuple(cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS),
+        smooth_l1_beta=cfg.MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA,
         cls_agnostic_bbox_reg=cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG,
+        cls_dropout=roi.CLS_DROPOUT,
+        dropout_ratio=roi.DROPOUT_RATIO,
         test_score_thresh=cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST,
         test_nms_thresh=cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST,
         test_topk_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,

@@ -1,10 +1,11 @@
-"""Fast R-CNN output layers and fixed-shape inference.
+"""Fast R-CNN output layers, losses and fixed-shape inference.
 
-Counterpart of the JAX package's ``models/fast_rcnn.py`` (inference side):
+Counterpart of the JAX package's ``models/fast_rcnn.py``. Inference:
 softmax -> drop the background column -> score threshold -> a static
 candidate budget by top-k -> class-offset NMS with ``max_keep`` -> the first
-``topk_per_image`` kept detections in fixed slots. Losses belong to the
-training slice.
+``topk_per_image`` kept detections in fixed slots. Training: softmax cross
+entropy and (smooth) L1 over a fixed grid of sampled slots, and the cls
+dropout of the gfsod fine-tunes.
 """
 
 from __future__ import annotations
@@ -12,25 +13,72 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.box_ops import clip_boxes, decode_deltas
+from ..ops.box_ops import clip_boxes, decode_deltas, encode_deltas, smooth_l1
 from ..ops.nms import batched_nms_fixed, top_k
 from .rpn import compact_kept
 
 
+def cls_dropout(x: torch.Tensor, rate: float, generator=None):
+    """flax ``nn.Dropout``: each value kept with probability 1 - rate (a
+    uniform draw from ``generator`` below it) and scaled by 1 / (1 - rate),
+    the others 0."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class FastRCNNOutputLayers(nn.Module):
-    """Linear cls (K+1) and box (4K, or 4 class-agnostic) heads, float32."""
+    """Linear cls (K+1) and box (4K, or 4 class-agnostic) heads, float32.
+    With ``cls_dropout``, the cls input (not the box input) goes through
+    dropout at ``dropout_ratio`` in training."""
 
     def __init__(self, in_features: int, num_classes: int,
-                 cls_agnostic_bbox_reg: bool = False, box_dim: int = 4):
+                 cls_agnostic_bbox_reg: bool = False, box_dim: int = 4,
+                 cls_dropout: bool = False, dropout_ratio: float = 0.8):
         super().__init__()
         num_reg = 1 if cls_agnostic_bbox_reg else num_classes
         self.cls_score = nn.Linear(in_features, num_classes + 1)
         self.bbox_pred = nn.Linear(in_features, num_reg * box_dim)
+        self.cls_dropout = cls_dropout
+        self.dropout_ratio = dropout_ratio
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator=None):
         if x.dim() > 2:
             x = x.flatten(1)
-        return self.cls_score(x), self.bbox_pred(x)
+        cls_in = x
+        if self.cls_dropout and train:
+            cls_in = cls_dropout(x, self.dropout_ratio, generator)
+        return self.cls_score(cls_in), self.bbox_pred(x)
+
+
+def fast_rcnn_losses(pred_logits, pred_deltas, proposal_boxes, gt_boxes,
+                     gt_classes, valid, num_classes: int,
+                     box_reg_weights=(10.0, 10.0, 5.0, 5.0),
+                     smooth_l1_beta: float = 0.0):
+    """Softmax cross entropy (mean over valid slots) and (smooth) L1 on the
+    foreground slots' class-specific deltas (sum over the valid count).
+    pred_logits (R, K+1), pred_deltas (R, 4K) or (R, 4), proposal_boxes and
+    gt_boxes (R, 4), gt_classes (R,) in [0, K] (K background), valid (R,)."""
+    r = pred_logits.shape[0]
+    nvalid = torch.clamp(valid.sum(), min=1)
+    zero = torch.zeros((), dtype=pred_logits.dtype,
+                       device=pred_logits.device)
+    logp = torch.log_softmax(pred_logits, dim=-1)
+    safe_cls = torch.clamp(gt_classes, 0, num_classes).long()
+    ce = -logp.gather(1, safe_cls[:, None])[:, 0]
+    loss_cls = torch.where(valid, ce, zero).sum() / nvalid
+
+    fg = valid & (gt_classes >= 0) & (gt_classes < num_classes)
+    gt_deltas = encode_deltas(proposal_boxes, gt_boxes, box_reg_weights)
+    if pred_deltas.shape[-1] == 4:
+        pd = pred_deltas
+    else:
+        cls_idx = torch.clamp(gt_classes, 0, num_classes - 1).long()
+        pd = pred_deltas.reshape(r, num_classes, 4).gather(
+            1, cls_idx[:, None, None].expand(r, 1, 4))[:, 0]
+    l1 = smooth_l1(pd - gt_deltas, smooth_l1_beta)
+    loss_box = torch.where(fg[:, None], l1, zero).sum() / nvalid
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
 
 
 def fast_rcnn_inference(pred_logits, pred_deltas, proposal_boxes,

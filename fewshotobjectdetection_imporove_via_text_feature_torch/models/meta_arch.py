@@ -1,11 +1,12 @@
 """GeneralizedRCNN: the DeFRCN C4 detector with gradient-decoupled branches.
 
-Counterpart of the JAX package's ``models/meta_arch.py`` (inference side):
-normalize -> backbone (res4) -> GDL + affine per branch -> RPN proposals ->
-Res5 ROI head -> fixed-shape Fast R-CNN inference -> original-frame boxes.
-Module names follow detectron2's state dict (``backbone``,
-``proposal_generator.rpn_head``, ``roi_heads``, ``affine_rpn``,
-``affine_rcnn``).
+Counterpart of the JAX package's ``models/meta_arch.py``: normalize ->
+backbone (res4) -> GDL + affine per branch -> RPN proposals -> Res5 ROI
+head -> fixed-shape Fast R-CNN inference -> original-frame boxes
+(``forward_inference``), or -> anchor labelling and RPN losses, proposal
+sampling and Fast R-CNN losses (``forward_train``). Module names follow
+detectron2's state dict (``backbone``, ``proposal_generator.rpn_head``,
+``roi_heads``, ``affine_rpn``, ``affine_rcnn``).
 """
 
 from __future__ import annotations
@@ -16,11 +17,22 @@ import torch
 from torch import nn
 
 from ..ops.gdl import decouple_layer
-from ..structures import Detections, ImageBatch
+from ..structures import Detections, GTInstances, ImageBatch
 from .backbone import RESNET_STAGES, ResNetC4
-from .fast_rcnn import fast_rcnn_inference, rescale_detections
-from .roi_heads import Res5ROIHeads
-from .rpn import RPNHead, cell_anchors, select_top_proposals
+from .fast_rcnn import (
+    fast_rcnn_inference,
+    fast_rcnn_losses,
+    rescale_detections,
+)
+from .roi_heads import Res5ROIHeads, label_and_sample_proposals
+from .rpn import (
+    RPNHead,
+    cell_anchors,
+    generate_anchors,
+    label_and_sample_anchors,
+    rpn_losses,
+    select_top_proposals,
+)
 
 
 class AffineLayer(nn.Module):
@@ -50,7 +62,8 @@ class _ProposalGenerator(nn.Module):
 
 class GeneralizedRCNN(nn.Module):
     """DeFRCN-style Faster R-CNN C4; ``forward_inference`` is the serving
-    path. Hyper-parameters keep the JAX module's field names."""
+    path, ``forward_train`` the training losses. Hyper-parameters keep the
+    JAX module's field names."""
 
     def __init__(
         self,
@@ -66,19 +79,34 @@ class GeneralizedRCNN(nn.Module):
         stride_in_1x1: bool = True,
         elide_strided_bins: bool = True,
         freeze_at: int = 3,
+        freeze_backbone: bool = False,
+        freeze_rpn: bool = False,
         anchor_sizes: Tuple[int, ...] = (32, 64, 128, 256, 512),
         anchor_aspect_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0),
         anchor_stride: int = 16,
         rpn_pre_nms_topk: Tuple[int, int] = (12000, 6000),
         rpn_post_nms_topk: Tuple[int, int] = (2000, 1000),
         rpn_nms_thresh: float = 0.7,
+        rpn_batch_per_image: int = 256,
+        rpn_positive_fraction: float = 0.5,
+        rpn_iou_thresholds: Tuple[float, float] = (0.3, 0.7),
+        rpn_smooth_l1_beta: float = 0.0,
         rpn_bbox_reg_weights: Tuple[float, ...] = (1.0,) * 4,
+        rpn_loss_weight: float = 1.0,
+        rpn_bbox_reg_loss_weight: float = 1.0,
         rpn_min_size: float = 0.0,
+        roi_batch_per_image: int = 512,
+        roi_positive_fraction: float = 0.25,
+        roi_iou_threshold: float = 0.5,
+        proposal_append_gt: bool = True,
         roi_chunk: int = 256,
         pooler_resolution: int = 7,
         sampling_ratio: int = 0,
         box_reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0),
+        smooth_l1_beta: float = 0.0,
         cls_agnostic_bbox_reg: bool = False,
+        cls_dropout: bool = False,
+        dropout_ratio: float = 0.8,
         test_score_thresh: float = 0.05,
         test_nms_thresh: float = 0.5,
         test_topk_per_image: int = 100,
@@ -93,15 +121,28 @@ class GeneralizedRCNN(nn.Module):
         self.rpn_backward_scale = rpn_backward_scale
         self.roi_enable_decouple = roi_enable_decouple
         self.roi_backward_scale = roi_backward_scale
+        self.freeze_backbone = freeze_backbone
+        self.freeze_rpn = freeze_rpn
         self.anchor_sizes = tuple(anchor_sizes)
         self.anchor_aspect_ratios = tuple(anchor_aspect_ratios)
         self.anchor_stride = anchor_stride
         self.rpn_pre_nms_topk = tuple(rpn_pre_nms_topk)
         self.rpn_post_nms_topk = tuple(rpn_post_nms_topk)
         self.rpn_nms_thresh = rpn_nms_thresh
+        self.rpn_batch_per_image = rpn_batch_per_image
+        self.rpn_positive_fraction = rpn_positive_fraction
+        self.rpn_iou_thresholds = tuple(rpn_iou_thresholds)
+        self.rpn_smooth_l1_beta = rpn_smooth_l1_beta
         self.rpn_bbox_reg_weights = tuple(rpn_bbox_reg_weights)
+        self.rpn_loss_weight = rpn_loss_weight
+        self.rpn_bbox_reg_loss_weight = rpn_bbox_reg_loss_weight
         self.rpn_min_size = rpn_min_size
+        self.roi_batch_per_image = roi_batch_per_image
+        self.roi_positive_fraction = roi_positive_fraction
+        self.roi_iou_threshold = roi_iou_threshold
+        self.proposal_append_gt = proposal_append_gt
         self.box_reg_weights = tuple(box_reg_weights)
+        self.smooth_l1_beta = smooth_l1_beta
         self.test_score_thresh = test_score_thresh
         self.test_nms_thresh = test_nms_thresh
         self.test_topk_per_image = test_topk_per_image
@@ -131,7 +172,8 @@ class GeneralizedRCNN(nn.Module):
             res5_blocks=RESNET_STAGES[depth][3],
             cls_agnostic_bbox_reg=cls_agnostic_bbox_reg, roi_chunk=roi_chunk,
             stride_in_1x1=stride_in_1x1,
-            elide_strided_bins=elide_strided_bins, dtype=dtype,
+            elide_strided_bins=elide_strided_bins, cls_dropout=cls_dropout,
+            dropout_ratio=dropout_ratio, dtype=dtype,
         )
 
     # ------------------------------------------------------------------
@@ -146,7 +188,10 @@ class GeneralizedRCNN(nn.Module):
 
     def compute_features(self, images: ImageBatch):
         feats = self.backbone(self.normalize(images.image))
-        return feats["res4"], feats
+        feat = feats["res4"]
+        if self.freeze_backbone:
+            feat = feat.detach()
+        return feat, feats
 
     def branch_features(self, feat):
         """GDL + affine per branch (ref rcnn.py:88-98)."""
@@ -162,6 +207,8 @@ class GeneralizedRCNN(nn.Module):
 
     def run_rpn(self, feat_rpn, images: ImageBatch, train: bool):
         logits, deltas = self.proposal_generator.rpn_head(feat_rpn)
+        if self.freeze_rpn:
+            logits, deltas = logits.detach(), deltas.detach()
         h, w = feat_rpn.shape[2], feat_rpn.shape[3]
         idx = 0 if train else 1
         proposals = select_top_proposals(
@@ -177,6 +224,89 @@ class GeneralizedRCNN(nn.Module):
 
     def forward(self, images: ImageBatch) -> Detections:
         return self.forward_inference(images)
+
+    def forward_train(self, images: ImageBatch, gt: GTInstances,
+                      sampling_generator=None, dropout_generator=None):
+        """The loss dict of one training batch: ``loss_*`` entries carry
+        gradient, ``metric/*`` entries are diagnostics without it. Anchor
+        and ROI sampling draw from ``sampling_generator``, cls dropout from
+        ``dropout_generator`` (each on the model's device, or None for the
+        global generator)."""
+        feat, _ = self.compute_features(images)
+        return self._train_tail(feat, images, gt, sampling_generator,
+                                dropout_generator)
+
+    def _train_tail(self, feat, images: ImageBatch, gt: GTInstances,
+                    sampling_generator=None, dropout_generator=None):
+        """RPN losses, proposal sampling and ROI losses on res4 features."""
+        feat_rpn, feat_rcnn = self.branch_features(feat)
+        logits, deltas, proposals = self.run_rpn(feat_rpn, images,
+                                                 train=True)
+        h, w = feat_rpn.shape[2], feat_rpn.shape[3]
+        anchors = torch.from_numpy(generate_anchors(
+            (h, w), self.anchor_stride, self.anchor_sizes,
+            self.anchor_aspect_ratios)).to(feat.device)
+        gt_labels, matched_boxes = label_and_sample_anchors(
+            anchors, gt, self.rpn_batch_per_image,
+            self.rpn_positive_fraction, self.rpn_iou_thresholds,
+            generator=sampling_generator,
+        )
+        losses = rpn_losses(
+            logits, deltas, anchors, gt_labels, matched_boxes,
+            batch_size_per_image=self.rpn_batch_per_image,
+            smooth_l1_beta=self.rpn_smooth_l1_beta,
+            bbox_reg_weights=self.rpn_bbox_reg_weights,
+            loss_weight=self.rpn_loss_weight,
+            bbox_reg_loss_weight=self.rpn_bbox_reg_loss_weight,
+        )
+        b = images.image.shape[0]
+        losses["metric/rpn_num_pos_anchors"] = (gt_labels == 1).sum() / b
+        losses["metric/rpn_num_neg_anchors"] = (gt_labels == 0).sum() / b
+        sampled = label_and_sample_proposals(
+            proposals, gt, self.roi_batch_per_image,
+            self.roi_positive_fraction, self.num_classes,
+            self.roi_iou_threshold, self.proposal_append_gt,
+            generator=sampling_generator,
+        )
+        losses.update(self.roi_losses(feat_rcnn, sampled,
+                                      dropout_generator))
+        return losses
+
+    def roi_losses(self, feat_rcnn, sampled, dropout_generator=None):
+        """Fast R-CNN losses of the sampled ROIs, and the accuracy and
+        sample-count diagnostics, computed without gradient."""
+        gt_classes = sampled["gt_classes"].reshape(-1)
+        valid = sampled["valid"].reshape(-1)
+        scores, deltas = self.roi_heads(feat_rcnn, sampled["boxes"],
+                                        train=True,
+                                        generator=dropout_generator)
+        losses = fast_rcnn_losses(
+            scores, deltas, sampled["boxes"].reshape(-1, 4),
+            sampled["gt_boxes"].reshape(-1, 4), gt_classes, valid,
+            num_classes=self.num_classes,
+            box_reg_weights=self.box_reg_weights,
+            smooth_l1_beta=self.smooth_l1_beta,
+        )
+        with torch.no_grad():
+            b = sampled["valid"].shape[0]
+            bg = self.num_classes
+            pred = scores.argmax(dim=1)
+            fg = valid & (gt_classes >= 0) & (gt_classes < bg)
+            n_valid = torch.clamp(valid.sum(), min=1)
+            n_fg = fg.sum()
+            losses.update({
+                "metric/cls_accuracy":
+                    (valid & (pred == gt_classes)).sum() / n_valid,
+                "metric/fg_cls_accuracy":
+                    (fg & (pred == gt_classes)).sum()
+                    / torch.clamp(n_fg, min=1),
+                "metric/false_negative":
+                    (fg & (pred == bg)).sum() / torch.clamp(n_fg, min=1),
+                "metric/roi_num_fg_samples": n_fg / b,
+                "metric/roi_num_bg_samples":
+                    (valid & (gt_classes == bg)).sum() / b,
+            })
+        return losses
 
     def forward_inference(self, images: ImageBatch) -> Detections:
         feat, _ = self.compute_features(images)

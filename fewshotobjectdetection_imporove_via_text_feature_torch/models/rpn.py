@@ -1,11 +1,11 @@
-"""Region Proposal Network, inference side: anchors, head and fixed-shape
-proposal selection.
+"""Region Proposal Network: anchors, head, fixed-shape proposal selection,
+anchor labelling and losses.
 
 Counterpart of the JAX package's ``models/rpn.py``: StandardRPNHead (shared
-3x3 conv -> 1x1 objectness + 1x1 deltas) and ``select_top_proposals``
+3x3 conv -> 1x1 objectness + 1x1 deltas), ``select_top_proposals``
 (top-k by objectness -> decode -> clip -> drop empty -> NMS with
-``max_keep`` -> fixed post-NMS slots with a validity mask). Training (anchor
-labelling and losses) belongs to the training slice.
+``max_keep`` -> fixed post-NMS slots with a validity mask),
+``label_and_sample_anchors`` and ``rpn_losses``.
 """
 
 from __future__ import annotations
@@ -16,9 +16,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.box_ops import SCALE_CLAMP
+from ..ops.box_ops import SCALE_CLAMP, encode_deltas, pairwise_iou, smooth_l1
+from ..ops.matcher import match_proposals
 from ..ops.nms import nms_auto, top_k
-from ..structures import Proposals
+from ..ops.sampler import subsample_labels
+from ..structures import GTInstances, Proposals
 
 
 def cell_anchors(sizes=(32, 64, 128, 256, 512),
@@ -141,3 +143,48 @@ def select_top_proposals(pred_logits, pred_deltas, cell, feat_hw, stride,
                              torch.full_like(out_valid, float("-inf"),
                                              dtype=dt))
     return Proposals(boxes=out_boxes, objectness=out_scores, valid=out_valid)
+
+
+def label_and_sample_anchors(anchors: torch.Tensor, gt: GTInstances,
+                             batch_size_per_image: int = 256,
+                             positive_fraction: float = 0.5,
+                             iou_thresholds=(0.3, 0.7), generator=None,
+                             priorities=None):
+    """Anchor labels (B, N) int32 in {-1, 0, 1}, subsampled, and the matched
+    GT box of every anchor (B, N, 4) float32, for anchors (N, 4) and padded
+    GT (B, G). ``generator`` / ``priorities`` as in
+    ``ops.sampler.subsample_labels``."""
+    iou = pairwise_iou(gt.boxes.float(), anchors)  # (B, G, N)
+    matched_idx, labels = match_proposals(
+        iou, gt.valid, list(iou_thresholds), [0, -1, 1],
+        allow_low_quality_matches=True,
+    )
+    labels = subsample_labels(labels, batch_size_per_image,
+                              positive_fraction, 0, generator, priorities)
+    matched = torch.gather(gt.boxes.float(), 1,
+                           matched_idx[..., None].expand(-1, -1, 4))
+    return labels, matched
+
+
+def rpn_losses(pred_logits, pred_deltas, anchors, gt_labels, matched_boxes,
+               batch_size_per_image: int = 256, smooth_l1_beta: float = 0.0,
+               bbox_reg_weights=(1.0, 1.0, 1.0, 1.0),
+               loss_weight: float = 1.0, bbox_reg_loss_weight: float = 1.0):
+    """Objectness BCE-with-logits over the sampled anchors and (smooth) L1
+    on the positives, both over B * batch_size_per_image. logits (B, N),
+    deltas (B, N, 4), anchors (N, 4), labels (B, N), matched (B, N, 4)."""
+    normalizer = float(pred_logits.shape[0] * batch_size_per_image)
+    pos = gt_labels == 1
+    gt_deltas = encode_deltas(anchors[None], matched_boxes, bbox_reg_weights)
+    loc = smooth_l1(pred_deltas - gt_deltas, smooth_l1_beta)
+    zero = torch.zeros((), dtype=loc.dtype, device=loc.device)
+    loss_loc = torch.where(pos[..., None], loc, zero).sum() / normalizer
+    # the stable form: max(z, 0) - z * y + log(1 + exp(-|z|))
+    z = pred_logits
+    bce = (torch.clamp(z, min=0.0) - z * pos.to(z.dtype)
+           + torch.log1p(torch.exp(-torch.abs(z))))
+    loss_cls = torch.where(gt_labels >= 0, bce, zero).sum() / normalizer
+    return {
+        "loss_rpn_cls": loss_cls * loss_weight,
+        "loss_rpn_loc": loss_loc * loss_weight * bbox_reg_loss_weight,
+    }

@@ -39,6 +39,48 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     )
 
 
+def encode_deltas(
+    src_boxes: torch.Tensor,
+    target_boxes: torch.Tensor,
+    weights=(1.0, 1.0, 1.0, 1.0),
+) -> torch.Tensor:
+    """Box2BoxTransform.get_deltas: (dx, dy, dw, dh) from ``src_boxes`` to
+    ``target_boxes`` (..., 4). Non-positive widths and heights are replaced
+    by 1 so that padded boxes give finite deltas, which the caller masks."""
+    wx, wy, ww, wh = weights
+    src_w = src_boxes[..., 2] - src_boxes[..., 0]
+    src_h = src_boxes[..., 3] - src_boxes[..., 1]
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+
+    tgt_w = target_boxes[..., 2] - target_boxes[..., 0]
+    tgt_h = target_boxes[..., 3] - target_boxes[..., 1]
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    one = torch.ones((), dtype=src_w.dtype, device=src_w.device)
+    safe_w = torch.where(src_w > 0, src_w, one)
+    safe_h = torch.where(src_h > 0, src_h, one)
+    safe_tw = torch.where(tgt_w > 0, tgt_w, one)
+    safe_th = torch.where(tgt_h > 0, tgt_h, one)
+
+    dx = wx * (tgt_cx - src_cx) / safe_w
+    dy = wy * (tgt_cy - src_cy) / safe_h
+    dw = ww * torch.log(safe_tw / safe_w)
+    dh = wh * torch.log(safe_th / safe_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
+def smooth_l1(diff: torch.Tensor, beta: float) -> torch.Tensor:
+    """Elementwise smooth L1 of box-delta differences (fvcore's
+    ``smooth_l1_loss`` without reduction); plain L1 at beta 0."""
+    ad = torch.abs(diff)
+    if beta > 0:
+        return torch.where(ad < beta, 0.5 * diff * diff / beta,
+                           ad - 0.5 * beta)
+    return ad
+
+
 def decode_deltas(
     deltas: torch.Tensor,
     boxes: torch.Tensor,

@@ -126,15 +126,15 @@ def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor,
     """Interpolation-matrix ROIAlign, the plain version of the kernel:
     ``out[r] = Wy[r] @ F @ Wx[r]^T`` in float32, contracting the longer
     spatial axis first."""
-    b, c, h, w = features.shape
+    b, _, h, w = features.shape
     s = boxes.shape[1]
     geo = roi_sample_geometry(
         boxes.reshape(-1, 4), spatial_scale, output_size, sampling_ratio,
         bin_stride, feat_hw=(h, w),
     )
     p_out = geo.p_out
-    if s == 0:
-        return features.new_zeros((b, 0, c, p_out, p_out))
+    # S = 0 takes the same path: an empty output that autograd still links
+    # to the features (their gradient is then 0)
     wy = _interp_matrix(geo.y1, geo.bin_h, geo.grid_y, geo.wy, h, p_out,
                         geo.sy).reshape(b, s, p_out, h)
     wx = _interp_matrix(geo.x1, geo.bin_w, geo.grid_x, geo.wx, w, p_out,
@@ -155,12 +155,15 @@ def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor,
 def roi_align(features: torch.Tensor, boxes: torch.Tensor,
               output_size: int = 7, spatial_scale: float = 1.0 / 16.0,
               sampling_ratio: int = 0, bin_stride: int = 1) -> torch.Tensor:
-    """ROIAlignV2 on the tensors' device (``ops.dispatch``): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    """ROIAlignV2 on the tensors' device (``ops.dispatch``): for CUDA
+    tensors the CUDA kernels, forward and backward, through an autograd
+    Function (the gradient goes to the features, not the boxes); for CPU
+    tensors the plain version and its autograd."""
     if use_kernel(features):
-        from .roi_align_cuda import roi_align_cuda
+        from .roi_align_cuda import ROIAlignFunction
 
-        return roi_align_cuda(features, boxes, output_size, spatial_scale,
-                              sampling_ratio, bin_stride)
+        return ROIAlignFunction.apply(features, boxes, output_size,
+                                      spatial_scale, sampling_ratio,
+                                      bin_stride)
     return roi_align_plain(features, boxes, output_size, spatial_scale,
                            sampling_ratio, bin_stride)

@@ -1,11 +1,15 @@
-"""ROIAlignV2 forward as one hand-written CUDA kernel call
-(``csrc/roi_align.cu``).
+"""ROIAlignV2 forward and backward as hand-written CUDA kernel calls
+(``csrc/roi_align.cu``), and the autograd Function that joins them.
 
-Replaces the JAX package's ``roi_align_mxu`` (``ops/roi_align_mxu.py``);
-its plain version is ``ops.roi_align.roi_align_plain``. The wrapper takes
-CUDA tensors only: it launches the kernel or raises. The kernel takes any
-C: it reads 8 channels a thread with 16-byte loads where C is a multiple of
-8 and the bases are 16-byte aligned, and channel by channel elsewhere.
+Replaces the JAX package's ``roi_align_mxu`` (``ops/roi_align_mxu.py``) and
+its autodiff gradient; the plain versions are
+``ops.roi_align.roi_align_plain`` and its autograd. The wrappers take CUDA
+tensors only: they launch their kernel or raise. The forward kernel takes
+any C: it reads 8 channels a thread with 16-byte loads where C is a
+multiple of 8 and the bases are 16-byte aligned, and channel by channel
+elsewhere. The backward kernel scatters into a float32 buffer with atomics
+(summation order varies from run to run), which the wrapper rounds once to
+bf16 for a bf16 gradient.
 """
 
 from __future__ import annotations
@@ -19,10 +23,11 @@ from . import cuda_build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _lib():
-    lib = cuda_build.load("roi_align")
-    fn = lib.fsod_roi_align_fwd
+def _lib(name="fsod_roi_align_fwd"):
+    fn = getattr(cuda_build.load("roi_align"), name)
     if fn.argtypes is None:
+        # (data, dtype, boxes, out, b, h, w, c, s, p, bin_stride, scale,
+        #  sampling, stream)
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -73,3 +78,76 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
 
 
 roi_align_cuda.launches = 0
+
+
+def roi_align_bwd_cuda(grad_out: torch.Tensor, boxes: torch.Tensor,
+                       feature_shape, output_size: int = 7,
+                       spatial_scale: float = 1.0 / 16.0,
+                       sampling_ratio: int = 0,
+                       bin_stride: int = 1) -> torch.Tensor:
+    """The gradient of ``roi_align_cuda`` with respect to the features:
+    grad_out (B, S, C, P', P') float32 or bfloat16 and boxes (B, S, 4) on
+    one CUDA device, feature_shape (B, C, H, W) -> (B, C, H, W) in
+    grad_out's dtype, a channels-last view of the kernel's NHWC output."""
+    if not (grad_out.is_cuda and boxes.is_cuda):
+        raise ValueError("roi_align_bwd_cuda takes CUDA tensors")
+    if grad_out.dtype not in _DTYPES:
+        raise TypeError(f"roi_align_bwd_cuda: grad dtype {grad_out.dtype}")
+    b, c, h, w = feature_shape
+    s = boxes.shape[1]
+    p_out = len(range(0, output_size, bin_stride))
+    if tuple(grad_out.shape) != (b, s, c, p_out, p_out) \
+            or tuple(boxes.shape) != (b, s, 4):
+        raise ValueError(
+            f"roi_align_bwd_cuda: grad {tuple(grad_out.shape)}, boxes "
+            f"{tuple(boxes.shape)}, features {tuple(feature_shape)}"
+        )
+    dev = grad_out.device
+    if s == 0 or b * h * w * c == 0:  # no ROI: no launch
+        return torch.zeros((b, h, w, c), dtype=grad_out.dtype,
+                           device=dev).permute(0, 3, 1, 2)
+    # the kernel's (B, S, P', P', C) order: free when grad_out is the
+    # permuted view the forward returned
+    g = grad_out.permute(0, 1, 3, 4, 2).contiguous()
+    boxes = boxes.to(torch.float32).contiguous()
+    # the kernel zeroes this buffer and sums into it in float32
+    grad32 = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+    fn = _lib("fsod_roi_align_bwd")
+    with torch.cuda.device(dev):
+        err = fn(
+            g.data_ptr(), _DTYPES[grad_out.dtype], boxes.data_ptr(),
+            grad32.data_ptr(), b, h, w, c, s, output_size, bin_stride,
+            float(spatial_scale), sampling_ratio,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    cuda_build.check(err, "fsod_roi_align_bwd")
+    roi_align_bwd_cuda.launches += 1
+    # bf16: rounded once to nearest-even; float32: the buffer itself
+    return grad32.to(grad_out.dtype).permute(0, 3, 1, 2)
+
+
+roi_align_bwd_cuda.launches = 0
+
+
+class ROIAlignFunction(torch.autograd.Function):
+    """``roi_align_cuda`` with ``roi_align_bwd_cuda`` as its backward. The
+    gradient goes to the features only: the boxes are detached proposals
+    and ground truth, as in the JAX package's training step."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, output_size, spatial_scale,
+                sampling_ratio, bin_stride):
+        ctx.save_for_backward(boxes)
+        ctx.args = (tuple(features.shape), output_size, spatial_scale,
+                    sampling_ratio, bin_stride)
+        return roi_align_cuda(features, boxes, output_size, spatial_scale,
+                              sampling_ratio, bin_stride)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (boxes,) = ctx.saved_tensors
+        grad_features = None
+        if ctx.needs_input_grad[0]:
+            grad_features = roi_align_bwd_cuda(grad, boxes, *ctx.args)
+        return grad_features, None, None, None, None, None

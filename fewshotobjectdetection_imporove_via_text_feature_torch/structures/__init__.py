@@ -1,3 +1,3 @@
-from .instances import Detections, ImageBatch, Proposals
+from .instances import Detections, GTInstances, ImageBatch, Proposals
 
-__all__ = ["Detections", "ImageBatch", "Proposals"]
+__all__ = ["Detections", "GTInstances", "ImageBatch", "Proposals"]

@@ -38,6 +38,16 @@ class ImageBatch(_TensorTuple):
 
 
 @dataclass
+class GTInstances(_TensorTuple):
+    """Padded ground truth: boxes (B, G, 4) XYXY in the resized image frame,
+    classes (B, G) int32, valid (B, G) bool; G is ``TPU.MAX_GT``."""
+
+    boxes: torch.Tensor
+    classes: torch.Tensor
+    valid: torch.Tensor
+
+
+@dataclass
 class Proposals(_TensorTuple):
     """Padded proposals: boxes (B, P, 4), objectness (B, P), valid (B, P)."""
 

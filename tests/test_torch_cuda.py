@@ -8,7 +8,13 @@ only PyTorch is installed:
 Without an NVIDIA card every test here skips. NMS keep masks must be equal;
 ROIAlign must agree within rtol/atol 1e-5 in float32 with TF32 off (the two
 sum in different orders) and within 1e-2 in bfloat16 (both round an f32
-sum once to bf16, so they may differ by one bf16 step).
+sum once to bf16, so they may differ by one bf16 step). The ROIAlign
+backward kernel must agree with the autograd of the plain version within
+1e-5 of the gradient's largest value in float32 (atomics add in a varying
+order) and within one bf16 step (2^-7 relative) more in bfloat16; a train
+step of a tiny detector through the kernels must agree with the same step
+through the plain versions (losses rtol 1e-4, gradients 1e-4 of each
+tensor's largest value).
 """
 
 import numpy as np
@@ -30,6 +36,7 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align import
     roi_align_plain,
 )
 from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align_cuda import (
+    roi_align_bwd_cuda,
     roi_align_cuda,
 )
 from test_torch_kernel_cases import (
@@ -37,6 +44,7 @@ from test_torch_kernel_cases import (
     ROI_CASES,
     nms_case,
     roi_case,
+    roi_grad_out,
 )
 
 ROI_TOLS = [
@@ -171,3 +179,151 @@ def test_roi_align_kernel_reads_past_2_31_elements_of_one_image(card):
     ref = roi_align_plain(feat, boxes, 7, 1.0, 2, 1)
     torch.testing.assert_close(got.float(), ref.float(), **ROI_TOLS[1][1])
     assert got[:, :2].abs().sum() > 0
+
+
+def _plain_grad(feat, boxes, p, scale, sampling, stride, grad_out):
+    f = feat.detach().clone().requires_grad_(True)
+    roi_align_plain(f, boxes, p, scale, sampling, stride).backward(grad_out)
+    return f.grad
+
+
+def _assert_grad_close(got, ref):
+    """float32: within 1e-5 of ref's largest value; bfloat16: within one
+    bf16 step (2^-7 relative) more."""
+    ref32 = ref.float()
+    atol = 1e-5 * float(ref32.abs().max())
+    rtol = 2.0 ** -7 if ref.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), ref32, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ROI_CASES)
+def test_roi_align_bwd_kernel_matches_plain_gradient(card, dtype, name):
+    feat, boxes, p, scale, sampling, stride = roi_case(name)
+    feat = torch.from_numpy(feat).to(card, dtype)
+    boxes = torch.from_numpy(boxes).to(card)
+    g = torch.from_numpy(roi_grad_out(name)).to(card, dtype)
+    before = roi_align_bwd_cuda.launches
+    got = roi_align_bwd_cuda(g, boxes, feat.shape, p, scale, sampling,
+                             stride)
+    # no ROI (s0) gives zeros with no launch
+    assert roi_align_bwd_cuda.launches == before + (name != "s0")
+    ref = _plain_grad(feat, boxes, p, scale, sampling, stride, g)
+    assert got.dtype == dtype and got.shape == ref.shape
+    _assert_grad_close(got, ref)
+    if name == "s0":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_reads_an_unaligned_grad(card, dtype):
+    feat, boxes, p, scale, sampling, stride = roi_case("c1024")
+    b, s = boxes.shape[:2]
+    c = feat.shape[1]
+    p_out = len(range(0, p, stride))
+    g = torch.from_numpy(roi_grad_out("c1024")).to(card, dtype)
+    flat = torch.empty(1 + g.numel(), dtype=dtype, device=card)
+    nhwc = flat[1:].view(b, s, p_out, p_out, c)
+    nhwc.copy_(g.permute(0, 1, 3, 4, 2))
+    g_view = nhwc.permute(0, 1, 4, 2, 3)  # what the forward hands back
+    assert g_view.data_ptr() % 16
+    feat = torch.from_numpy(feat).to(card, dtype)
+    boxes = torch.from_numpy(boxes).to(card)
+    got = roi_align_bwd_cuda(g_view, boxes, feat.shape, p, scale, sampling,
+                             stride)
+    _assert_grad_close(got, _plain_grad(feat, boxes, p, scale, sampling,
+                                        stride, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_on_cuda_gives_the_features_a_gradient(card, dtype):
+    """On a CUDA tensor ``roi_align`` goes through the autograd Function:
+    the features get the backward kernel's gradient (they once got none)."""
+    rng = np.random.RandomState(3)
+    feat = torch.from_numpy(rng.randn(2, 64, 30, 44).astype(np.float32))
+    feat = feat.to(card, dtype).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    boxes = torch.from_numpy(_boxes(rng, 2, 100, 500)).to(card)
+    g = torch.randn(2, 100, 64, 4, 4, device=card).to(dtype)
+    fwd, bwd = roi_align_cuda.launches, roi_align_bwd_cuda.launches
+    out = roi_align(feat, boxes, 7, 1 / 16.0, 0, 2)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert roi_align_cuda.launches == fwd + 1
+    assert roi_align_bwd_cuda.launches == bwd + 1
+    assert feat.grad is not None and feat.grad.dtype == dtype
+    _assert_grad_close(feat.grad, _plain_grad(feat, boxes, 7, 1 / 16.0, 0,
+                                              2, g))
+
+
+def test_tiny_train_step_with_kernels_matches_plain_ops(card):
+    from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint import (
+        init_weights,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        GeneralizedRCNN,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.structures import (
+        GTInstances,
+        ImageBatch,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = GeneralizedRCNN(
+            num_classes=5, depth=14, stem_out_channels=8,
+            res2_out_channels=16, width_per_group=4, freeze_at=0,
+            rpn_pre_nms_topk=(1200, 1200), rpn_post_nms_topk=(300, 300),
+            rpn_batch_per_image=256, roi_batch_per_image=512,
+        )
+        gen = torch.Generator().manual_seed(0)
+        init_weights(model, gen)
+        with torch.no_grad():  # live residual branches
+            for name, p in model.named_parameters():
+                if name.endswith("conv3.weight"):
+                    p.normal_(0.0, 0.05, generator=gen)
+        model = model.to(card).train()
+        rng = np.random.RandomState(7)
+        images = ImageBatch(
+            image=torch.from_numpy(rng.uniform(0, 255, (2, 128, 160, 3))
+                                   .astype(np.float32)),
+            hw=torch.tensor([[128, 160], [96, 128]], dtype=torch.int32),
+            orig_hw=torch.tensor([[128, 160], [96, 128]], dtype=torch.int32),
+        ).to(card)
+        xy = rng.uniform(0, 80, (2, 8, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(16, 40, (2, 8, 2))], -1)
+        gt = GTInstances(
+            boxes=torch.from_numpy(boxes.astype(np.float32)),
+            classes=torch.from_numpy(rng.randint(0, 5, (2, 8)).astype(
+                np.int32)),
+            valid=torch.from_numpy(np.arange(8)[None].repeat(2, 0) < 4),
+        ).to(card)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            losses = model.forward_train(
+                images, gt, torch.Generator(device=card).manual_seed(1))
+            sum(v for k, v in losses.items()
+                if not k.startswith("metric/")).backward()
+            return losses, {n: p.grad.clone()
+                            for n, p in model.named_parameters()}
+
+        counts = (nms_sorted_cuda.launches, roi_align_cuda.launches,
+                  roi_align_bwd_cuda.launches)
+        got, got_g = step()
+        assert (nms_sorted_cuda.launches - counts[0],
+                roi_align_cuda.launches - counts[1],
+                roi_align_bwd_cuda.launches - counts[2]) == (1, 2, 2)
+        with plain_ops():
+            ref, ref_g = step()
+        for k in ref:
+            torch.testing.assert_close(got[k].float(), ref[k].float(),
+                                       rtol=1e-4, atol=1e-7, msg=k)
+        assert float(got["loss_box_reg"].detach()) > 0
+        for name, g in ref_g.items():
+            torch.testing.assert_close(
+                got_g[name], g, rtol=0,
+                atol=1e-4 * float(g.abs().max()), msg=name)
+        assert float(got_g["backbone.res4.0.conv1.weight"].abs().max()) > 0
+    finally:
+        torch.backends.cudnn.deterministic = False

@@ -1,8 +1,10 @@
 """Edge cases of the port's two kernels, defined once for both sides.
 
-``tests/test_torch_kernel_edges.py`` holds the port's plain versions
+``tests/test_torch_kernel_edges.py`` and ``tests/test_torch_train_ops.py``
+hold the port's plain versions (and the plain ROIAlign's autograd gradient)
 against the JAX package on these cases (CPU), and ``tests/test_torch_cuda.py``
-holds the CUDA kernels against the plain versions on them (card). This
+holds the CUDA kernels, forward and backward, against the plain versions on
+them (card). This
 module imports neither JAX nor the JAX package, so the card file still runs
 with ``pytest --noconftest``. Its own tests check, on the CPU, that each
 case has the property its name claims.
@@ -113,6 +115,8 @@ def roi_case(name):
         h, w, stride = 22, 13, 1
     elif name == "w_ge_h":
         h, w, stride = 13, 22, 1
+    elif name == "fixed2":  # a fixed 2 x 2 samples a bin
+        h, w, stride, sampling = 13, 22, 1, 2
     elif name == "s0":
         s = 0
     elif name == "pcb":  # P 1 on res5 at 1/32 (the 800x1344 bucket)
@@ -129,8 +133,18 @@ def roi_case(name):
     return feat, boxes, p, scale, sampling, stride
 
 
-ROI_CASES = ["c60", "c1024", "c2048", "h_gt_w", "w_ge_h", "s0", "outside",
-             "pcb"]
+ROI_CASES = ["c60", "c1024", "c2048", "h_gt_w", "w_ge_h", "fixed2", "s0",
+             "outside", "pcb"]
+
+
+def roi_grad_out(name):
+    """The gradient (B, S, C, P', P') float32 that the backward cases send
+    into ROIAlign's output, for ``roi_case(name)``."""
+    feat, boxes, p, _, _, stride = roi_case(name)
+    p_out = len(range(0, p, stride))
+    rng = np.random.RandomState(sum(map(ord, name)) + 1)
+    shape = (boxes.shape[0], boxes.shape[1], feat.shape[1], p_out, p_out)
+    return rng.randn(*shape).astype(np.float32)
 
 
 # --------------------------------------- the cases have their properties
@@ -195,3 +209,6 @@ def test_roi_case_shapes(name):
         h, w = feat.shape[2:]
         x1, y1, x2, y2 = (boxes[:, :4, i] * scale - 0.5 for i in range(4))
         assert ((x2 < -1) | (y2 < -1) | (x1 > w) | (y1 > h)).all()
+    g = roi_grad_out(name)
+    p_out = len(range(0, p, stride))
+    assert g.shape == (*boxes.shape[:2], feat.shape[1], p_out, p_out)
