@@ -39,18 +39,38 @@ Phases, each of which fails the run on error:
      ops with the same generators (proposals and sampled ROIs equal, losses
      within 1e-5, five gradients within 1e-4 of their largest values);
      (b) bfloat16 at SOLVER.IMS_PER_BATCH 16, 2 warm-up and 10 timed
-     steps, every loss finite, launches per step NMS 1, ROIAlign forward
-     2 and backward 2; (c) phases 3, 4 and 7 again on the training path's
-     own inputs: the arguments of every kernel call in one more bf16 step,
-     captured.
+     steps, each ended by a CUDA event (no synchronize between steps),
+     every loss finite, launches per step NMS 1, ROIAlign forward 2 and
+     backward 2; (c) phases 3, 4 and 7 again on the training path's own
+     inputs: the arguments of every kernel call in one more bf16 step,
+     captured;
+  9. the few-shot workflow through the port's CLI (``cli.setup``, the
+     ``Trainer`` as ``cli.do_train`` builds it, ``cli.main``) on the same
+     config at full width, its own INPUT sizes, its three IMAGE_BUCKETS
+     and IMS_PER_BATCH 16, bf16, on synthetic VOC made by the port's maker
+     (800 images of 500x375 a year): the train loader alone (images/s); 20
+     base-training steps fed by the loader, each ended by a CUDA event, the
+     first step of each bucket apart; with --profile, one loader-fed step
+     profiled (after 3 that warm the loader); phases 3, 4 and 7 again on
+     one loader-fed step's own inputs, and that batch stepped 5 times more
+     with no loader and 5 times with a loader decoding beside it; randinit
+     surgery 15 -> 20 classes; the gfsod 1-shot seed-0 config
+     (tools/create_config.py, into a copy of configs/); 4 fine-tune steps
+     and the evaluation of the 800 test images at the CLI's batch of 32
+     (images/s over the last 20 batches, bAP50/nAP50 finite, the log.txt
+     copypaste contract); phases 3 and 4 again on one evaluation batch's
+     own inputs (the fine-tuned 20-class model, batch 32);
+     tools/extract_results.py. Launches are counted over the training and
+     over the fine-tune with its evaluation, each against its expected
+     count.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
-Prints one JSON line with every kernel's numbers (launches on the serving
-path of phase 5, or of phase 8 (b) for the backward, and launches per train
-step), then the card's name and power limit, then as the last line
+Prints one JSON line with every kernel's numbers (launches summed over the
+main paths of phases 5, 8 (b) and 9, by path, and launches per train step),
+then the card's name and power limit, then as the last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result, when CUDA is absent or the package is missing.
 """
@@ -574,7 +594,8 @@ def phase_predictor(profile_dir=None):
         f"image {[len(o['boxes']) for o in got]}; launches {counts}")
     if profile_dir:
         phase_profile(pred, batch, profile_dir)
-    return counts, capture_kernel_inputs(lambda: pred.predict_batch(batch))
+    return counts, capture_kernel_inputs(
+        lambda: pred.predict_batch(batch)), chunks
 
 
 def capture_kernel_inputs(fn):
@@ -617,20 +638,22 @@ def capture_kernel_inputs(fn):
 
 
 # ----------------------------------------------------------------- phase 6
-def phase_main_path_inputs(calls):
-    """Phases 3 and 4 again, on the main path's own inputs: the RPN's sorted
-    proposals and the final detections (NMS), and the ROI head's proposals
-    on res4 (ROIAlign), as one bf16 predict_batch(8) handed them over."""
+def phase_main_path_inputs(calls, chunks, label="main_path"):
+    """Phases 3 and 4 again, on an inference path's own inputs: the RPN's
+    sorted proposals and the final detections (NMS), and the ROI head's
+    proposals on res4 in ``chunks`` launches (ROIAlign), as one bf16
+    forward handed them over (phase 6: predict_batch(8); phase 9: one
+    evaluation batch)."""
     sites = ("rpn", "final")
-    if len(calls["nms"]) != len(sites) or not calls["roi_align"]:
-        raise PhaseError(f"captured {len(calls['nms'])} NMS and "
+    if len(calls["nms"]) != len(sites) or len(calls["roi_align"]) != chunks:
+        raise PhaseError(f"{label}: captured {len(calls['nms'])} NMS and "
                          f"{len(calls['roi_align'])} ROIAlign calls")
-    nms = {site: check_nms(f"main_path_{site}", *args)
+    nms = {site: check_nms(f"{label}_{site}", *args)
            for site, args in zip(sites, calls["nms"])}
-    roi = [check_roi_align(f"main_path_chunk{i}", args, ROI_BF16_TOL)
+    roi = [check_roi_align(f"{label}_chunk{i}", args, ROI_BF16_TOL)
            for i, args in enumerate(calls["roi_align"])]
     total = {k: sum(r[k] for r in roi) for k in ("ms", "graph_ms")}
-    log(f"main path's inputs: ROIAlign {len(roi)} launches "
+    log(f"{label}'s inputs: ROIAlign {len(roi)} launches "
         f"{total['ms']:.4f} ms enqueued from Python ({total['graph_ms']:.4f}"
         f" ms graph replay); NMS RPN site {nms['rpn']['ms']:.4f} ms, final "
         f"site {nms['final']['ms']:.4f} ms")
@@ -898,11 +921,59 @@ def phase_train_f32(tmp):
     torch.cuda.empty_cache()
 
 
+def _step_end_hook(trainer):
+    """A Trainer hook that records a CUDA event at the end of each step and
+    keeps the step's losses, with no synchronize, so the loop runs as it
+    does unobserved. Returns (hook, events, losses)."""
+    import torch
+
+    ends, losses = [], []
+
+    def hook(it):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        losses.append(trainer.last_losses)
+
+    return hook, ends, losses
+
+
+def _spacings(start, ends):
+    """ms between successive CUDA events, the first from ``start``: each
+    step's share of the stream, host waits included. Call after a
+    synchronize."""
+    return [a.elapsed_time(b) for a, b in zip([start, *ends[:-1]], ends)]
+
+
+def _timed_steps(step, n):
+    """``step(k)`` for k < n, each ended by a CUDA event and one
+    synchronize after the last; returns the ms of each."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ends = []
+    for k in range(n):
+        step(k)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+    torch.cuda.synchronize()
+    return _spacings(start, ends)
+
+
+def _not_finite(losses):
+    """Indices of the steps whose losses are not all finite."""
+    import math
+
+    return [k for k, d in enumerate(losses)
+            if not all(math.isfinite(float(v)) for v in d.values())]
+
+
 def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
     """(b) bfloat16 at IMS_PER_BATCH: Trainer.train over warm-up and timed
-    steps; the launch counters span the whole run. With ``profile_dir``,
-    one more step is profiled after it; then (c) one more is captured."""
-    import math
+    steps, each ended by a CUDA event and one synchronize after the run;
+    the launch counters span the whole run. With ``profile_dir``, one more
+    step is profiled after it; then (c) one more is captured."""
     import statistics
 
     import torch
@@ -920,42 +991,39 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
     cfg = _train_cfg(os.path.join(tmp, "bf16"), "bfloat16", batch, steps)
     data = train_batches(12, 2, batch)
     trainer = Trainer(cfg, data)
-    stamps, bad = [], []
-
-    def hook(it):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        losses = trainer.last_losses
-        if not all(math.isfinite(float(v)) for v in losses.values()):
-            bad.append(it)
-
+    hook, ends, losses = _step_end_hook(trainer)
     trainer.hooks.append(hook)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     read = _reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read()
     peak = torch.cuda.max_memory_allocated()
+    bad = _not_finite(losses)
     if bad:
         raise PhaseError(f"train bf16: non-finite losses at steps {bad}")
     want = {"greedy_nms": steps, "roi_align_v2_fwd": 2 * steps,
             "roi_align_v2_bwd": 2 * steps}
     if counts != want:
         raise PhaseError(f"train bf16: launches {counts}, expected {want}")
-    step_s = [b - a for a, b in zip(stamps[warmup - 1:], stamps[warmup:])]
-    med = statistics.median(step_s)
+    step_ms = _spacings(start, ends)[warmup:]
+    med = statistics.median(step_ms)
+    window = ends[warmup - 1].elapsed_time(ends[-1]) / timed
     last = {k: round(float(v), 5) for k, v in trainer.last_losses.items()}
-    log(f"train bfloat16 batch {batch} at 800x1344, R-101: {steps} steps in "
-        f"{wall:.2f} s (model_final saved); median step "
-        f"{med * 1e3:.2f} ms over steps {warmup}-{steps - 1} "
-        f"({batch / med:.2f} images/s), steps "
-        f"{[round(x * 1e3, 1) for x in step_s]} ms; peak memory "
-        f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches {counts} "
-        f"= per step {({k: v // steps for k, v in counts.items()})}; "
-        f"last losses {last}")
+    log(f"train bfloat16 batch {batch} at 800x1344, R-101, resident "
+        f"batches: {steps} steps in {wall:.2f} s (model_final saved); step "
+        f"ms (CUDA events at step ends, no synchronize between steps) "
+        f"median {med:.2f} over steps {warmup}-{steps - 1} "
+        f"({batch * 1e3 / med:.2f} images/s), mean over that window "
+        f"{window:.2f}, steps {[round(x, 1) for x in step_ms]}; peak "
+        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated); launches "
+        f"{counts} = per step "
+        f"{({k: v // steps for k, v in counts.items()})}; last losses {last}")
     images, gt = (t.to("cuda") for t in data[0])
     if profile_dir:
         profile_call(f"bf16 train step, batch {batch}",
@@ -965,10 +1033,11 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
         lambda: trainer.train_step(images, gt, steps + 1)))
     del trainer
     torch.cuda.empty_cache()
-    return {k: v // steps for k, v in counts.items()}, counts
+    return {**{k: v // steps for k, v in counts.items()},
+            "median_ms": med, "window_ms": window}, counts
 
 
-def phase_train_inputs(calls):
+def phase_train_inputs(calls, label="train_path"):
     """(c) phases 3, 4 and 7 again on the training path's own inputs: the
     RPN's sorted proposals (NMS), both 256-ROI chunks of sampled ROIs on the
     res4 map (ROIAlign forward) and their gradients (backward), as one more
@@ -976,15 +1045,361 @@ def phase_train_inputs(calls):
     got = {k: len(v) for k, v in calls.items()}
     if got != {"nms": 1, "roi_align": 2, "roi_align_bwd": 2}:
         raise PhaseError(f"train bf16: captured kernel calls {got}")
-    nms = check_nms("train_path_rpn", *calls["nms"][0])
-    fwd = [check_roi_align(f"train_path_chunk{i}", args, ROI_BF16_TOL)
+    nms = check_nms(f"{label}_rpn", *calls["nms"][0])
+    fwd = [check_roi_align(f"{label}_chunk{i}", args, ROI_BF16_TOL)
            for i, args in enumerate(calls["roi_align"])]
-    bwd = [check_roi_align_bwd(f"train_path_chunk{i}", args)
+    bwd = [check_roi_align_bwd(f"{label}_chunk{i}", args)
            for i, args in enumerate(calls["roi_align_bwd"])]
-    log(f"train path's inputs: NMS {nms['ms']:.4f} ms; ROIAlign forward "
+    log(f"{label}'s inputs: NMS {nms['ms']:.4f} ms; ROIAlign forward "
         f"{sum(r['ms'] for r in fwd):.4f} ms and backward "
         f"{sum(r['ms'] for r in bwd):.4f} ms over 2 launches each, enqueued "
         f"from Python")
+
+
+# ----------------------------------------------------------------- phase 9
+# synthetic VOC images a year: the test set (VOC2007 test) is 25 batches of
+# 32, so 20 are timed after the evaluator's 5 warm-up batches; the training
+# set (VOC2007 + VOC2012 trainval) fills every bucket's batches many times
+WORKFLOW_IMAGES = 800
+WORKFLOW_BASE_STEPS = 20
+WORKFLOW_FT_STEPS = 4
+LOADER_BATCHES = 24  # batches taken from the loader alone
+LOADER_SKIP = 8  # of which the first, decoded ahead, are not timed
+RESIDENT_STEPS = 5  # one loader batch stepped again, without and with a
+# loader decoding beside the steps
+
+
+def _workflow_args(config, out_dir, *opts):
+    """The CLI's argv: the config's own INPUT sizes, IMAGE_BUCKETS and
+    IMS_PER_BATCH, bf16, seeded weights, no periodic checkpoint."""
+    return ["--config-file", config, "--opts", "MODEL.WEIGHTS", "",
+            "TPU.COMPUTE_DTYPE", "bfloat16", "SEED", "0",
+            "SOLVER.CHECKPOINT_PERIOD", "0", "OUTPUT_DIR", out_dir, *opts]
+
+
+def _drained(loader):
+    """Take batches from ``loader`` in a thread and drop them, so that its
+    decode threads run flat out beside the caller; returns finish(), which
+    stops the thread and returns the batches taken."""
+    import threading
+
+    stop, taken = threading.Event(), [0]
+
+    def drain():
+        while not stop.is_set():
+            next(loader)
+            taken[0] += 1
+
+    t = threading.Thread(target=drain, daemon=True)
+    t.start()
+
+    def finish():
+        stop.set()
+        t.join(60)
+        return taken[0]
+
+    return finish
+
+
+def phase_workflow(tmp, profile_dir=None):
+    """The few-shot workflow through the port's CLI at full width, on
+    synthetic VOC at 500x375: the loader alone; base training built as
+    cli.do_train builds it, fed by the loader, each step ended by a CUDA
+    event; one loader-fed step profiled (--profile) and one checked
+    against the plain ops; that batch stepped again without and with a
+    loader decoding beside it; randinit surgery 15 -> 20 classes; the gfsod
+    1-shot seed-0 config; a fine-tune and the evaluation of the test set
+    through cli.main; the kernels checked on one evaluation batch's own
+    inputs; extract_results.py. Returns the kernel launches of the
+    loader-fed training and of the fine-tune with its evaluation, and the
+    numbers to print."""
+    import math
+    import shutil
+    import statistics
+
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        build_detection_test_loader,
+        build_detection_train_loader,
+        device_batches,
+        native_io,
+        register_all,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation import (
+        inference_on_dataset,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        model_surgery,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_voc import (
+        make_voc,
+    )
+
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = "no PIL"
+    root = os.path.join(tmp, "datasets")
+    t0 = time.perf_counter()
+    make_voc(root, images=WORKFLOW_IMAGES, image_size=(500, 375))
+    os.environ["FSODTF_DATASETS"] = root
+    log(f"workflow: synthetic VOC, {WORKFLOW_IMAGES} images of 500x375 a "
+        f"year, made in {time.perf_counter() - t0:.1f} s; {pil}; native "
+        f"decode core {'built' if native_io.available() else 'unavailable'}")
+    runs = os.path.join(tmp, "runs")
+    base_out = os.path.join(runs, "base1")
+    cfg = cli.setup(cli.default_argument_parser().parse_args(
+        _workflow_args(CONFIG, base_out, "SOLVER.MAX_ITER",
+                       str(WORKFLOW_BASE_STEPS))))
+    register_all(root)
+    batch = cfg.SOLVER.IMS_PER_BATCH
+    dev = cfg.MODEL.DEVICE
+    pin = dev == "cuda"
+
+    # the loader alone, as the Trainer builds it (its seed, page-locked
+    # batches): the same batches the training below takes, so their
+    # buckets are the training steps' buckets. Once the first LOADER_SKIP
+    # are taken the queue is drained and the rate is the decode threads'
+    t0 = time.perf_counter()
+    loader = build_detection_train_loader(cfg, seed=cfg.SEED, pin_memory=pin)
+    try:
+        stamps, shapes = [], []
+        for _ in range(LOADER_BATCHES):
+            shapes.append(tuple(next(loader)[0].image.shape[1:3]))
+            stamps.append(time.perf_counter())
+    finally:
+        loader.close()
+    loader_rate = (LOADER_BATCHES - LOADER_SKIP) * batch / (
+        stamps[-1] - stamps[LOADER_SKIP - 1])
+    log(f"workflow loader alone: {LOADER_BATCHES} batches of {batch} in "
+        f"{stamps[-1] - t0:.3f} s from its start "
+        f"({LOADER_BATCHES * batch / (stamps[-1] - t0):.2f} images/s); "
+        f"after the first {LOADER_SKIP}, {loader_rate:.2f} images/s "
+        f"({cfg.DATALOADER.NUM_WORKERS} decode threads, {os.cpu_count()} "
+        f"cores)")
+
+    # 1. base training from the loader, as cli.do_train runs it (no
+    # evaluation hook: EVAL_PERIOD is MAX_ITER), each step ended by a CUDA
+    # event, one synchronize after the run
+    trainer = Trainer(cfg)
+    trainer.resume_or_load(resume=False)
+    hook, ends, losses = _step_end_hook(trainer)
+    trainer.hooks.append(hook)
+    read = _reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = read()
+    want = {"greedy_nms": WORKFLOW_BASE_STEPS,
+            "roi_align_v2_fwd": 2 * WORKFLOW_BASE_STEPS,
+            "roi_align_v2_bwd": 2 * WORKFLOW_BASE_STEPS}
+    if train_counts != want:
+        raise PhaseError(f"workflow base training: launches {train_counts}, "
+                         f"expected {want}")
+    bad = _not_finite(losses)
+    if bad:
+        raise PhaseError(f"workflow base training: non-finite losses at "
+                         f"steps {bad}")
+    shapes = shapes[:WORKFLOW_BASE_STEPS]
+    step_ms = _spacings(start, ends)
+    first = {}
+    for k, s in enumerate(shapes):
+        first.setdefault(s, k)
+    steady = {s: [step_ms[k] for k in range(len(shapes))
+                  if shapes[k] == s and k != first[s]] for s in first}
+    med = {s: statistics.median(v) for s, v in steady.items() if v}
+    all_steady = [v for vs in steady.values() for v in vs]
+    window = ends[0].elapsed_time(ends[-1]) / (len(ends) - 1)
+    log(f"workflow base training, bf16 batch {batch}, R-101, loader-fed: "
+        f"{WORKFLOW_BASE_STEPS} steps in {wall:.2f} s (loader start and "
+        f"model_final included), buckets {shapes}; step ms (CUDA events at "
+        f"step ends, no synchronize between steps; the first from before "
+        f"train(), loader start included) {[round(x, 1) for x in step_ms]};"
+        f" first step of each bucket "
+        f"{({s: round(step_ms[k], 1) for s, k in first.items()})} ms; "
+        f"median of the others by bucket "
+        f"{({s: round(v, 2) for s, v in med.items()})} ms, over all "
+        f"buckets {statistics.median(all_steady):.2f} ms; mean over steps "
+        f"1-{WORKFLOW_BASE_STEPS - 1} {window:.2f} ms; launches "
+        f"{train_counts}; last losses {_fmt(trainer.last_losses)}")
+
+    # one more loader: 3 steps from it to warm it up, then (--profile) one
+    # step profiled, fetch included; one step's kernel inputs captured
+    loader = build_detection_train_loader(cfg, seed=2, pin_memory=pin)
+    feed = device_batches(loader, dev)
+    step = 10_000
+    try:
+        for step in range(step, step + 3):
+            trainer.train_step(*next(feed)[:2], step)
+        if profile_dir:
+            seen = []
+
+            def fed_step():
+                images, gt, _ = next(feed)
+                seen.append((images, gt))
+                trainer.train_step(images, gt, step + 1)
+
+            profile_call(f"bf16 loader-fed train step, batch {batch}",
+                         fed_step, profile_dir,
+                         f"profile_bf16_loader_step_{batch}.txt")
+            log(f"workflow: the profiled loader-fed step's bucket "
+                f"{tuple(seen[0][0].image.shape[1:3])}; its batch stepped "
+                f"again, resident, profiled next")
+            profile_call(f"bf16 resident train step, the same batch",
+                         lambda: trainer.train_step(*seen.pop(), step + 1),
+                         profile_dir, f"profile_bf16_resident_step_{batch}.txt")
+        images, gt, _ = next(feed)
+        calls = capture_kernel_inputs(
+            lambda: trainer.train_step(images, gt, step + 2))
+    finally:
+        feed.close()
+        loader.close()
+    bucket = tuple(images.image.shape[1:3])
+    log(f"workflow: kernels on one loader-fed step's own inputs, bucket "
+        f"{bucket}")
+    phase_train_inputs(calls, "workflow_path")
+    del calls
+    # that batch stepped again: with no loader, then with a loader whose
+    # batches a thread takes and drops, so that its decode threads compete
+    # with the step's host work at their full rate (the loader-fed steps
+    # ran them at the step's pace)
+    step += 3
+    alone = _timed_steps(lambda k: trainer.train_step(images, gt, step + k),
+                         RESIDENT_STEPS)
+    step += RESIDENT_STEPS
+    loader = build_detection_train_loader(cfg, seed=3, pin_memory=pin)
+    try:
+        next(loader)
+        finish = _drained(loader)
+        t0 = time.perf_counter()
+        beside = _timed_steps(
+            lambda k: trainer.train_step(images, gt, step + k),
+            RESIDENT_STEPS)
+        drained = finish() * batch / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+    resident = statistics.median(alone)
+    contended = statistics.median(beside)
+    log(f"workflow: that batch ({bucket}) stepped {RESIDENT_STEPS} times "
+        f"(CUDA events): with no loader {[round(x, 1) for x in alone]} ms, "
+        f"median {resident:.2f}; with a loader decoding beside the steps "
+        f"({drained:.1f} images/s taken and dropped) "
+        f"{[round(x, 1) for x in beside]} ms, median {contended:.2f}; "
+        f"loader-fed median in that bucket "
+        f"{med.get(bucket, float('nan')):.2f} ms")
+    del trainer, images, gt
+    torch.cuda.empty_cache()
+
+    # 2. surgery, 3. the per-seed config in a copy of configs/
+    surgery = model_surgery.main([
+        "--dataset", "voc", "--method", "randinit", "--src-path",
+        os.path.join(base_out, "model_final.pth"), "--save-dir", base_out])
+    shutil.copytree(os.path.join(ROOT, "configs"),
+                    os.path.join(tmp, "configs"))
+    _run_script("create_config.py", "--dataset", "voc", "--config_root",
+                os.path.join(tmp, "configs", "voc"), "--shot", "1",
+                "--seed", "0", "--setting", "gfsod", "--split", "1")
+    ft_config = os.path.join(tmp, "configs", "voc",
+                             "defrcn_gfsod_r101_novel1_1shot_seed0.yaml")
+
+    # 4. fine-tune, then the evaluation, through cli.main
+    ft_out = os.path.join(runs, "1shot_seed0")
+    read = _reset_counts()
+    results = cli.main(_workflow_args(
+        ft_config, ft_out, "MODEL.WEIGHTS", surgery, "SOLVER.MAX_ITER",
+        str(WORKFLOW_FT_STEPS), "TEST.PCB_ENABLE", "False"))
+    ft_counts = read()
+    timing = inference_on_dataset.last_timing
+    bbox = results["voc_2007_test_all1"]["bbox"]
+    n_images = timing["images"]
+    batches = -(-n_images // cli.EVAL_BATCH_SIZE)
+    chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // cfg.TPU.ROI_CHUNK)
+    want = {"greedy_nms": WORKFLOW_FT_STEPS + 2 * batches,
+            "roi_align_v2_fwd": 2 * WORKFLOW_FT_STEPS + chunks * batches,
+            "roi_align_v2_bwd": 2 * WORKFLOW_FT_STEPS}
+    if ft_counts != want:
+        raise PhaseError(f"workflow fine-tune + eval: launches {ft_counts}, "
+                         f"expected {want}")
+    if n_images != WORKFLOW_IMAGES or not all(
+            math.isfinite(bbox[k]) for k in ("bAP50", "nAP50")):
+        raise PhaseError(f"workflow eval: {n_images} images, {bbox}")
+    lines = [ln.strip() for ln in open(os.path.join(ft_out, "log.txt"))
+             if ln.strip()]
+    if not ("copypaste" in lines[-1] and "copypaste" in lines[-2]):
+        raise PhaseError(f"workflow log.txt ends {lines[-2:]}")
+    log(f"workflow fine-tune ({WORKFLOW_FT_STEPS} steps, 20 classes) and "
+        f"evaluation of {n_images} test images at batch "
+        f"{cli.EVAL_BATCH_SIZE}: {1 / timing['s_per_image']:.2f} images/s "
+        f"over the last {timing['timed_images']} (the first 5 batches left "
+        f"out), {1 / timing['wall_s_per_image']:.2f} images/s wall; "
+        f"launches {ft_counts}; bAP50 {bbox['bAP50']:.4f}, nAP50 "
+        f"{bbox['nAP50']:.4f} (seeded weights: plumbing, not accuracy)")
+    for ln in lines[-3:]:
+        log(f"workflow log.txt: {ln.split(': ', 1)[-1]}")
+
+    # the kernels on one evaluation batch's own inputs: the fine-tuned
+    # 20-class model at the CLI's evaluation batch
+    ft_cfg = get_cfg()
+    ft_cfg.merge_from_file(ft_config)
+    ft_cfg.merge_from_list(["MODEL.WEIGHTS",
+                            os.path.join(ft_out, "model_final.pth"),
+                            "TPU.COMPUTE_DTYPE", "bfloat16"])
+    model = cli.build_test_model(ft_cfg)
+    feed = device_batches(build_detection_test_loader(
+        ft_cfg, "voc_2007_test_all1", batch_size=cli.EVAL_BATCH_SIZE,
+        prefetch=False, pin_memory=pin), dev)
+    images, _, _ = next(feed)
+    feed.close()
+    with torch.inference_mode():
+        calls = capture_kernel_inputs(lambda: model.forward_inference(images))
+    # the copies made in inference mode, copied again as plain tensors
+    calls = {k: [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                       for a in args) for args in v]
+             for k, v in calls.items()}
+    log(f"workflow: kernels on one evaluation batch's own inputs, images "
+        f"{tuple(images.image.shape[:3])}, "
+        f"{ft_cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes")
+    phase_main_path_inputs(calls, chunks, "eval_path")
+    del model, images, calls
+    torch.cuda.empty_cache()
+
+    # 5. aggregate
+    _run_script("extract_results.py", "--res-dir", runs, "--shot-list", "1")
+    table = open(os.path.join(runs, "results.txt")).read()
+    if "1-shot" not in table:
+        raise PhaseError(f"extract_results: {table}")
+    for ln in table.strip().splitlines():
+        log(f"workflow results.txt: {ln}")
+    return train_counts, ft_counts, dict(
+        loader_images_per_s=loader_rate,
+        fed_step_ms=statistics.median(all_steady), fed_step_ms_by_bucket=med,
+        fed_window_ms=window, resident_bucket=bucket, resident_ms=resident,
+        contended_ms=contended, eval_batch=cli.EVAL_BATCH_SIZE,
+        eval_images_per_s=1 / timing["s_per_image"])
+
+
+def _run_script(name, *argv):
+    """Run tools/<name> of the repository in this process."""
+    import runpy
+
+    saved = sys.argv
+    sys.argv = [name, *argv]
+    try:
+        runpy.run_path(os.path.join(ROOT, "tools", name),
+                       run_name="__main__")
+    finally:
+        sys.argv = saved
 
 
 # ------------------------------------------------- optional: --profile
@@ -1097,8 +1512,8 @@ def main(argv) -> int:
     profile_dir = None
     if "--profile" in argv:
         profile_dir = os.path.abspath(argv[argv.index("--profile") + 1])
-    counts, calls = phase_predictor(profile_dir)
-    phase_main_path_inputs(calls)
+    counts, calls, chunks = phase_predictor(profile_dir)
+    phase_main_path_inputs(calls, chunks)
     bwd = phase_roi_align_bwd(gen)
     kernels.append(dict(
         name="roi_align_v2_bwd", route="cuda",
@@ -1113,11 +1528,34 @@ def main(argv) -> int:
         phase_train_f32(tmp)
         per_step, train_counts = phase_train_bf16(tmp,
                                                   profile_dir=profile_dir)
+    with tempfile.TemporaryDirectory() as tmp:
+        fed_counts, eval_counts, workflow = phase_workflow(tmp, profile_dir)
+    log(f"workflow summary (phase 9 beside phase 8 (b); step ms from CUDA "
+        f"events, no synchronize between steps): loader alone "
+        f"{workflow['loader_images_per_s']:.2f} images/s; loader-fed step "
+        f"median {workflow['fed_step_ms']:.2f} ms over all buckets (first "
+        f"step of each left out), by bucket "
+        f"{ {k: round(v, 2) for k, v in workflow['fed_step_ms_by_bucket'].items()} }"
+        f" ms, mean over the run {workflow['fed_window_ms']:.2f} ms; one of "
+        f"its batches at {workflow['resident_bucket']} stepped again with no "
+        f"loader {workflow['resident_ms']:.2f} ms, with a loader decoding "
+        f"beside it {workflow['contended_ms']:.2f} ms; resident batches at "
+        f"800x1344 (phase 8 (b)) median {per_step['median_ms']:.2f} ms, "
+        f"mean {per_step['window_ms']:.2f} ms; evaluation at batch "
+        f"{workflow['eval_batch']} {workflow['eval_images_per_s']:.2f} "
+        f"images/s")
     for k in kernels:
-        # the serving path's launches (phase 5), or the training run's for
-        # the backward, which serving never launches
-        k["launches"] = counts[k["name"]] or train_counts[k["name"]]
-        k["launches_per_train_step"] = per_step[k["name"]]
+        name = k["name"]
+        # every main path's launches: serving (phase 5), training on
+        # resident batches (phase 8 (b)), the workflow's loader-fed
+        # training (phase 9) and its fine-tune with evaluation (phase 9)
+        k["launches"] = (counts[name] + train_counts[name] + fed_counts[name]
+                         + eval_counts[name])
+        k["launches_by_path"] = {
+            "serving": counts[name], "training": train_counts[name],
+            "workflow_training": fed_counts[name],
+            "workflow_finetune_and_eval": eval_counts[name]}
+        k["launches_per_train_step"] = per_step[name]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@ from .checkpointer import (
     Checkpointer,
     load_checkpoint_file,
     load_jax_checkpoint,
+    read_weights,
 )
 from .convert import init_weights, state_dict_from_jax_params
 from .surgery import reset_optimizer, surgery_randinit, surgery_remove
@@ -10,6 +11,7 @@ __all__ = [
     "Checkpointer",
     "load_checkpoint_file",
     "load_jax_checkpoint",
+    "read_weights",
     "init_weights",
     "state_dict_from_jax_params",
     "reset_optimizer",

@@ -72,6 +72,22 @@ def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return state_dict_from_jax_params(load_checkpoint_file(path)["params"])
 
 
+def read_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The model weights in ``path``: a JAX package pickle checkpoint
+    (``.ckpt``) or a checkpoint of this package (``.pth``)."""
+    if path.endswith(".ckpt"):
+        return load_jax_checkpoint(path)
+    if path.endswith(".pth"):
+        return torch.load(path, map_location="cpu",
+                          weights_only=True)["model"]
+    raise NotImplementedError(
+        f"MODEL.WEIGHTS {path!r}: importing ImageNet (Caffe2 .pkl) and "
+        "detectron2 weights is ROADMAP.md Queue 1 item 8; pass "
+        "state_dict=, a JAX package .ckpt or a checkpoint of this "
+        "package (.pth)"
+    )
+
+
 def _fsync_dir(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:

@@ -1,0 +1,237 @@
+"""Command line of the PyTorch package, counterpart of the JAX package's
+``cli.py`` (ref main.py:36-132): train, then evaluate, or evaluate only.
+
+    python -m fewshotobjectdetection_imporove_via_text_feature_torch.cli \\
+        --config-file configs/voc/defrcn_det_r101_base1.yaml \\
+        --opts MODEL.WEIGHTS "" OUTPUT_DIR out/base1
+    python -m fewshotobjectdetection_imporove_via_text_feature_torch.cli \\
+        --config-file ... --eval-only --opts MODEL.WEIGHTS out/model_final.pth
+
+It runs on ``MODEL.DEVICE`` ("cuda" by default; ``MODEL.DEVICE cpu`` for
+the CPU) and raises when CUDA is absent. Datasets are read under
+``$FSODTF_DATASETS`` (default ``datasets``). OUTPUT_DIR/log.txt gets the
+whole log, ending in the "copypaste:" lines that
+``tools/extract_results.py`` scrapes. ``MODEL.WEIGHTS ""`` starts from
+weights drawn from the seed.
+
+Not ported yet, and refused: more than one GPU or machine (ROADMAP.md Queue
+1 item 15), ``TPU.SPATIAL_PARTITION > 1`` (item 15) and PCB rescoring,
+``TEST.PCB_ENABLE True`` (item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import platform
+import sys
+
+# evaluation batch: on an H100 80GB HBM3 at its 700 W limit, bf16 R-101
+# on 500x375 images (the 800x1344 bucket), batch 32 gave 129.5 images/s
+# against 119.7 at 16 and 96.4 at 8, at 5.13 GiB, over 20-95 timed batches
+# (tools/eval_batch_sweep.py); a bucket group's last batch is padded with
+# copies, which valid_count drops
+EVAL_BATCH_SIZE = 32
+
+logger = logging.getLogger("fsodtf_torch")
+
+
+def default_argument_parser():
+    parser = argparse.ArgumentParser(
+        description="DeFRCN few-shot detection (PyTorch)")
+    parser.add_argument("--config-file", default="", metavar="FILE")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--eval-only", action="store_true")
+    parser.add_argument("--eval-iter", type=int, default=-1)
+    # the reference's launch options: one GPU and one machine here
+    parser.add_argument("--num-gpus", type=int, default=1)
+    parser.add_argument("--num-machines", type=int, default=1)
+    parser.add_argument("--machine-rank", type=int, default=0)
+    parser.add_argument("--dist-url", default="auto")
+    parser.add_argument(
+        "--opts", default=[], nargs=argparse.REMAINDER,
+        help="Modify config options via 'KEY VALUE' pairs",
+    )
+    return parser
+
+
+def _not_ported(what: str, where: str):
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet: ROADMAP.md {where}")
+
+
+def check_cli_config(cfg, args=None) -> None:
+    """Raise for an option this package does not run."""
+    if args is not None and (args.num_machines > 1 or args.num_gpus > 1):
+        raise _not_ported(
+            f"--num-gpus {args.num_gpus} --num-machines {args.num_machines}",
+            "Queue 1 item 15 (multi-device)")
+    if cfg.TPU.SPATIAL_PARTITION > 1:
+        raise _not_ported("TPU.SPATIAL_PARTITION > 1",
+                          "Queue 1 item 15 (multi-device)")
+    if cfg.TEST.PCB_ENABLE:
+        raise _not_ported("TEST.PCB_ENABLE True (PCB rescoring)",
+                          "Queue 1 item 11 (PCB); pass TEST.PCB_ENABLE False")
+
+
+def setup(args):
+    """cfg from the file and the overrides; logging to stdout and
+    OUTPUT_DIR/log.txt."""
+    from .config import get_cfg
+
+    cfg = get_cfg()
+    if args.config_file:
+        cfg.merge_from_file(args.config_file)
+    if args.opts:
+        cfg.merge_from_list(args.opts)
+    # EVAL_PERIOD as the reference (main.py:81-82) rewrites it; 0 (the
+    # default) evaluates at the end
+    if cfg.TEST.EVAL_PERIOD == 1000:
+        cfg.TEST.EVAL_PERIOD = cfg.SOLVER.MAX_ITER // 3 + 100
+    if cfg.TEST.EVAL_PERIOD == 0 and cfg.SOLVER.MAX_ITER > 0:
+        cfg.TEST.EVAL_PERIOD = cfg.SOLVER.MAX_ITER
+    check_cli_config(cfg, args)
+    fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    if not any(getattr(h, "_fsodtf_torch", None) == "stdout"
+               for h in root.handlers):
+        sh = logging.StreamHandler(sys.stdout)
+        sh.setFormatter(fmt)
+        sh._fsodtf_torch = "stdout"
+        root.addHandler(sh)
+    if cfg.OUTPUT_DIR:
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        path = os.path.abspath(os.path.join(cfg.OUTPUT_DIR, "log.txt"))
+        # one file handler per log.txt, however often setup runs in-process
+        if not any(getattr(h, "_fsodtf_torch", None) == path
+                   for h in root.handlers):
+            fh = logging.FileHandler(path)
+            fh.setFormatter(fmt)
+            fh._fsodtf_torch = path
+            root.addHandler(fh)
+    if not cfg.MUTE_HEADER:
+        import torch
+
+        logger.info("environment: python %s, torch %s, cuda %s, device %s",
+                    platform.python_version(), torch.__version__,
+                    torch.version.cuda, cfg.MODEL.DEVICE)
+        logger.info("Running with full config:\n%s", cfg.dump())
+    return cfg
+
+
+def resolve_eval_iter_checkpoint(output_dir: str, eval_iter: int) -> str:
+    """--eval-iter N -> OUTPUT_DIR's checkpoint of that iteration: a
+    periodic checkpoint carries the 0-based iteration (model_0000999 for
+    period 1000), so N and N-1 are both looked for, as this package's
+    ``.pth`` or the JAX package's ``.ckpt``."""
+    candidates = [
+        os.path.join(output_dir, f"model_{i:07d}{ext}")
+        for i in (eval_iter, eval_iter - 1)
+        for ext in (".pth", ".ckpt")
+        if i >= 0
+    ]
+    found = next((c for c in candidates if os.path.exists(c)), None)
+    if found is None:
+        raise FileNotFoundError(
+            f"--eval-iter {eval_iter}: none of {candidates} exist")
+    return found
+
+
+def build_evaluator(cfg, dataset_name, output_dir):
+    from .data import MetadataCatalog
+    from .evaluation import PascalVOCDetectionEvaluator
+
+    etype = MetadataCatalog.get(dataset_name).get("evaluator_type")
+    if etype == "pascal_voc":
+        return PascalVOCDetectionEvaluator(dataset_name, output_dir)
+    if etype == "coco":
+        raise _not_ported(f"COCO evaluation of {dataset_name!r}",
+                          "Queue 1 item 12 (COCO)")
+    raise NotImplementedError(f"no evaluator for {dataset_name} ({etype})")
+
+
+def build_test_model(cfg):
+    """The model of ``cfg`` on its device, in eval mode, with MODEL.WEIGHTS
+    (a ``.pth`` or a JAX ``.ckpt``), or weights drawn from seed 0."""
+    import torch
+
+    from .checkpoint import init_weights, read_weights
+    from .engine.predictor import resolve_device
+    from .models import build_model
+
+    model = build_model(cfg)
+    init_weights(model, torch.Generator().manual_seed(0))
+    if cfg.MODEL.WEIGHTS:
+        model.load_state_dict(read_weights(cfg.MODEL.WEIGHTS))
+    return model.to(resolve_device(cfg)).eval()
+
+
+def do_test(cfg, model=None):
+    """Evaluate on every dataset of cfg.DATASETS.TEST; prints the
+    copypaste rows and exits 1 when TEST.EXPECTED_RESULTS fails."""
+    from .data import build_detection_test_loader
+    from .evaluation import (
+        inference_on_dataset,
+        print_csv_format,
+        verify_results,
+    )
+
+    check_cli_config(cfg)
+    if model is None:
+        model = build_test_model(cfg)
+    pin = next(model.parameters()).is_cuda
+    results = {}
+    for dataset_name in cfg.DATASETS.TEST:
+        loader = build_detection_test_loader(
+            cfg, dataset_name, batch_size=EVAL_BATCH_SIZE, pin_memory=pin)
+        evaluator = build_evaluator(cfg, dataset_name, cfg.OUTPUT_DIR)
+        res = inference_on_dataset(model, loader, evaluator,
+                                   no_gt=cfg.TEST.NO_GT_EVAL)
+        results[dataset_name] = res
+        print_csv_format(res)
+        if not verify_results(cfg, res):
+            sys.exit(1)
+    return results
+
+
+def do_train(cfg, resume: bool = False):
+    """Train on cfg.DATASETS.TRAIN, with the periodic evaluation hook;
+    returns the ``Trainer``."""
+    from .engine import Trainer
+    from .engine.hooks import EvalHook
+
+    trainer = Trainer(cfg)
+    trainer.resume_or_load(resume=resume)
+    if 0 < cfg.TEST.EVAL_PERIOD < cfg.SOLVER.MAX_ITER and cfg.DATASETS.TEST:
+        trainer.hooks.append(EvalHook(
+            cfg.TEST.EVAL_PERIOD, cfg.SOLVER.MAX_ITER, cfg.OUTPUT_DIR,
+            lambda: do_test(cfg, model=trainer.model)))
+    trainer.train()
+    return trainer
+
+
+def main(argv=None):
+    args = default_argument_parser().parse_args(argv)
+    cfg = setup(args)
+
+    from .data import register_all
+
+    register_all(os.environ.get("FSODTF_DATASETS", "datasets"))
+    if args.eval_only:
+        if args.eval_iter >= 0:
+            cfg.MODEL.WEIGHTS = resolve_eval_iter_checkpoint(
+                cfg.OUTPUT_DIR, args.eval_iter)
+        return do_test(cfg)
+    trainer = do_train(cfg, resume=args.resume)
+    if trainer.preempted:
+        # SIGTERM: a resumable checkpoint was saved; no final evaluation
+        return None
+    if cfg.DATASETS.TEST:
+        return do_test(cfg, model=trainer.model)
+    return None
+
+
+if __name__ == "__main__":
+    main()

@@ -54,6 +54,22 @@ class CfgNode(dict):
             )
         _merge(loaded, self)
 
+    def merge_from_list(self, opts: list) -> None:
+        """Command-line overrides ``KEY VALUE ...``: each key must exist,
+        and each value is parsed against its default's type."""
+        if len(opts) % 2:
+            raise ValueError(f"Override list has odd length: {opts}")
+        for full_key, v in zip(opts[0::2], opts[1::2]):
+            node = self
+            parts = full_key.split(".")
+            for p in parts[:-1]:
+                if p not in node:
+                    raise KeyError(f"Non-existent config key: {full_key}")
+                node = node[p]
+            if parts[-1] not in node:
+                raise KeyError(f"Non-existent config key: {full_key}")
+            node[parts[-1]] = _coerce(v, node[parts[-1]])
+
     # -- io ----------------------------------------------------------------
     def dump(self) -> str:
         return yaml.safe_dump(_to_plain(self), default_flow_style=None)

@@ -46,13 +46,13 @@ def preprocess_single_image(cfg, original_image: np.ndarray,
 
 
 def resolve_device(cfg, device=None) -> torch.device:
-    """The device a predictor runs on: ``device`` if given, else
+    """The device an entry point runs on: ``device`` if given, else
     ``cfg.MODEL.DEVICE``; raises for CUDA when CUDA is absent."""
     dev = torch.device(device if device is not None else cfg.MODEL.DEVICE)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"DefaultPredictor: device {str(dev)!r} asked for, but CUDA is "
-            "not available; pass device='cpu' to run on the CPU"
+            f"device {str(dev)!r} asked for, but CUDA is not available; "
+            "pass device='cpu' (MODEL.DEVICE cpu) to run on the CPU"
         )
     if dev.type not in ("cuda", "cpu"):
         raise NotImplementedError(f"DefaultPredictor on {dev}")

@@ -9,28 +9,32 @@ autocast. Each step's anchor/ROI sampling and cls dropout draw from two
 generators seeded from the run's seed and the iteration.
 
 ``Trainer`` runs the loop on ``cfg.MODEL.DEVICE`` ("cuda" by default, and
-it raises when CUDA is absent) over an iterable of ``(ImageBatch,
-GTInstances)`` batches: it saves every ``SOLVER.CHECKPOINT_PERIOD`` steps
-and ``model_final`` at the end, resumes the iteration, optimizer and
-scheduler from the newest checkpoint, and on SIGTERM saves and stops. The
-data loader, multi-device training and on-device preprocessing are not in
-this package yet and their options raise.
+it raises when CUDA is absent). Its batches come from
+``build_detection_train_loader(cfg, seed=...)`` (page-locked on CUDA), or
+from an iterable of ``(ImageBatch, GTInstances[, meta])`` that the caller
+passes; ``device_batches`` copies each to the device as the loop takes
+it, on a stream of its own on CUDA. It logs every 20 iterations ("iter N" lines, metrics.json), saves
+every ``SOLVER.CHECKPOINT_PERIOD`` steps and ``model_final`` at the end,
+resumes the iteration, optimizer and scheduler from the newest checkpoint,
+and on SIGTERM saves and stops. Multi-device training and on-device
+preprocessing are not in this package yet and their options raise.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import signal
 import time
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
-from ..checkpoint import Checkpointer, init_weights, load_jax_checkpoint
+from ..checkpoint import Checkpointer, init_weights, read_weights
+from ..data.loader import build_detection_train_loader, device_batches
 from ..models import build_model
 from ..solver import build_gradient_clipper, build_optimizer, build_scheduler
+from ..utils.events import MetricsLogger
 from .predictor import resolve_device
 
 # options of the JAX trainer that this package does not have yet:
@@ -106,12 +110,15 @@ def make_train_step(model, optimizer, scheduler=None, clip=None,
 
 
 class Trainer:
-    """cfg + an iterable of ``(ImageBatch, GTInstances)`` batches -> a
-    trained model. ``device`` overrides ``cfg.MODEL.DEVICE``;
-    ``state_dict`` gives starting weights (else MODEL.WEIGHTS, a JAX package
-    ``.ckpt`` or this package's ``.pth``; else weights from the seed)."""
+    """cfg -> a trained model. ``data``: an iterable of ``(ImageBatch,
+    GTInstances[, meta])`` batches of CPU tensors, or None for
+    ``build_detection_train_loader(cfg, seed=self.seed)``. ``device``
+    overrides ``cfg.MODEL.DEVICE``; ``state_dict`` gives starting weights
+    (else MODEL.WEIGHTS, a JAX package ``.ckpt`` or this package's
+    ``.pth``; else weights from the seed)."""
 
-    def __init__(self, cfg, data: Iterable, device=None, state_dict=None):
+    def __init__(self, cfg, data: Optional[Iterable] = None, device=None,
+                 state_dict=None):
         check_training_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg, device)
@@ -120,7 +127,7 @@ class Trainer:
         model = build_model(cfg)
         init_weights(model, torch.Generator().manual_seed(self.seed))
         if state_dict is None and cfg.MODEL.WEIGHTS:
-            state_dict = self._weights(cfg.MODEL.WEIGHTS)
+            state_dict = read_weights(cfg.MODEL.WEIGHTS)
         if state_dict is not None:
             # keys the weights lack (a predictor removed by surgery) keep
             # their seeded values
@@ -135,25 +142,12 @@ class Trainer:
             self.model, self.optimizer, self.scheduler,
             build_gradient_clipper(cfg), self.seed)
         self.checkpointer = Checkpointer(cfg.OUTPUT_DIR)
+        self.metrics = MetricsLogger(cfg.OUTPUT_DIR)
         self.start_iter = 0
         self.max_iter = cfg.SOLVER.MAX_ITER
         self.hooks = []  # callables hook(iteration), after each step
         self.last_losses = {}  # the latest step's, detached
         self.preempted = False
-
-    @staticmethod
-    def _weights(path):
-        if path.endswith(".ckpt"):
-            return load_jax_checkpoint(path)
-        if path.endswith(".pth"):
-            return torch.load(path, map_location="cpu",
-                              weights_only=True)["model"]
-        raise NotImplementedError(
-            f"MODEL.WEIGHTS {path!r}: importing ImageNet (Caffe2 .pkl) and "
-            "detectron2 weights is ROADMAP.md Queue 1 item 8; pass "
-            "state_dict=, a JAX package .ckpt or a checkpoint of this "
-            "package (.pth)"
-        )
 
     def resume_or_load(self, resume: bool = True) -> None:
         """With ``resume``, restore the model, optimizer, scheduler and
@@ -170,10 +164,11 @@ class Trainer:
             self.scheduler.load_state_dict(loaded["scheduler"])
         self.start_iter = int(loaded["iteration"]) + 1
 
-    def _batches(self):
+    def _epochs(self, data):
+        """The caller's iterable, over and over."""
         while True:
             empty = True
-            for batch in self.data:
+            for batch in data:
                 empty = False
                 yield batch
             if empty:
@@ -184,6 +179,14 @@ class Trainer:
         step's losses."""
         cfg = self.cfg
         self.preempted = False
+        loader = None
+        if self.data is None:
+            loader = build_detection_train_loader(
+                cfg, seed=self.seed,
+                pin_memory=self.device.type == "cuda")
+        batches = device_batches(
+            loader if loader is not None else self._epochs(self.data),
+            self.device)
 
         def on_term(signum, frame):
             self.preempted = True
@@ -192,19 +195,18 @@ class Trainer:
             prev = signal.signal(signal.SIGTERM, on_term)
         except ValueError:  # not the main thread: no handler
             prev = None
-        batches = self._batches()
         losses, it, t_last = {}, self.start_iter, time.time()
         try:
             while it < self.max_iter:
-                images, gt = next(batches)
-                losses = self.train_step(images.to(self.device),
-                                         gt.to(self.device), it)
+                images, gt, _ = next(batches)
+                losses = self.train_step(images, gt, it)
                 self.last_losses = losses
                 if it % 20 == 0 or it == self.max_iter - 1:
                     now = time.time()
-                    self._log(it, {**{k: float(v) for k, v in losses.items()},
-                                   "lr": self.optimizer.param_groups[0]["lr"],
-                                   "time_since_last_log": now - t_last})
+                    self.metrics.log(
+                        it, {**losses,
+                             "lr": self.optimizer.param_groups[0]["lr"],
+                             "time_since_last_log": now - t_last})
                     t_last = now
                 period = cfg.SOLVER.CHECKPOINT_PERIOD
                 if period > 0 and (it + 1) % period == 0:
@@ -221,6 +223,9 @@ class Trainer:
         finally:
             if prev is not None:
                 signal.signal(signal.SIGTERM, prev)
+            batches.close()
+            if loader is not None:
+                loader.close()
             self.checkpointer.wait()
         return losses
 
@@ -235,7 +240,9 @@ class Trainer:
         else:
             self.checkpointer.save(state, name)
 
-    def _log(self, iteration: int, values) -> None:
-        with open(os.path.join(self.cfg.OUTPUT_DIR, "metrics.json"),
-                  "a") as f:
-            f.write(json.dumps({"iteration": iteration, **values}) + "\n")
+    def test(self, cfg=None):
+        """Evaluate the model on cfg.DATASETS.TEST, as the CLI does
+        (DefaultTrainer.test); returns {dataset: results}."""
+        from ..cli import do_test
+
+        return do_test(cfg or self.cfg, model=self.model)

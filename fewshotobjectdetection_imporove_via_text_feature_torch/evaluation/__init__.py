@@ -1,0 +1,13 @@
+from ..utils.events import print_csv_format, verify_results
+from .evaluator import DatasetEvaluator, inference_on_dataset
+from .voc_eval import PascalVOCDetectionEvaluator, voc_ap, voc_eval_class
+
+__all__ = [
+    "inference_on_dataset",
+    "DatasetEvaluator",
+    "PascalVOCDetectionEvaluator",
+    "voc_ap",
+    "voc_eval_class",
+    "print_csv_format",
+    "verify_results",
+]

@@ -1,0 +1,102 @@
+"""Inference over a test loader, counterpart of the JAX package's
+``evaluation/evaluator.py`` (ref defrcn/evaluation/evaluator.py:82-162),
+for the flagship ``GeneralizedRCNN``.
+
+Batches reach the model's device through ``device_batches`` (on CUDA,
+copies on their own stream from page-locked memory). The model runs under
+``torch.inference_mode()``; each batch's detections come to the host in one
+copy per field, and the padded tail of a bucket group
+(``meta['valid_count']``) is dropped before the evaluator sees it. Timing
+follows the reference: the first ``NUM_WARMUP`` batches are left out of the
+per-image compute time, which is logged and kept, with the image count and
+the wall time, in ``inference_on_dataset.last_timing``.
+
+Not here: PCB rescoring (ROADMAP.md Queue 1 item 11), the painting
+meta-archs that see test-time GT (item 10) and multi-device evaluation
+(item 15). The flagship is a plain arch: it never sees GT, so
+``TEST.NO_GT_EVAL`` changes nothing for it.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Optional
+
+import torch
+
+from ..data.loader import device_batches
+
+logger = logging.getLogger(__name__)
+
+NUM_WARMUP = 5
+
+
+class DatasetEvaluator:
+    def reset(self):
+        pass
+
+    def process_detections(self, image_ids, boxes, scores, classes, valid):
+        raise NotImplementedError
+
+    def evaluate(self):
+        raise NotImplementedError
+
+
+def inference_on_dataset(model, data_loader, evaluator: Optional[
+        DatasetEvaluator], pcb=None, no_gt: bool = False):
+    """Run ``model.forward_inference`` over the loader's batches on the
+    model's device and return ``evaluator.evaluate()`` ({} without one).
+    ``no_gt`` is accepted for the JAX package's signature: the flagship
+    never sees GT. Logs the image count, the per-image compute time
+    without the warm-up batches, and the per-image wall time."""
+    if pcb is not None:
+        raise NotImplementedError(
+            "PCB rescoring is not ported to the PyTorch package yet: "
+            "ROADMAP.md Queue 1 item 11 (PCB)"
+        )
+    del no_gt  # a plain arch: no test-time GT to withhold
+    if evaluator is not None:
+        evaluator.reset()
+    device = next(model.parameters()).device
+    was_training = model.training
+    model.eval()
+    start = time.perf_counter()
+    steady_start, steady_images, num_images = None, 0, 0
+    batches = device_batches(data_loader, device)
+    try:
+        with torch.inference_mode():
+            for k, (images, _, meta) in enumerate(batches):
+                det = model.forward_inference(images)
+                n = meta.get("valid_count", images.image.shape[0])
+                fields = [t[:n].cpu().numpy() for t in
+                          (det.boxes, det.scores, det.classes, det.valid)]
+                ids = meta.get("image_ids", list(range(n)))[:n]
+                num_images += n
+                if steady_start is not None:
+                    steady_images += n
+                if evaluator is not None:
+                    evaluator.process_detections(ids, *fields)
+                if k + 1 == NUM_WARMUP:
+                    steady_start = time.perf_counter()
+    finally:
+        batches.close()
+        model.train(was_training)
+    wall = time.perf_counter() - start
+    steady = ((time.perf_counter() - steady_start) / steady_images
+              if steady_images else wall / max(num_images, 1))
+    inference_on_dataset.last_timing = dict(
+        images=num_images, timed_images=steady_images,
+        s_per_image=steady, wall_s_per_image=wall / max(num_images, 1))
+    logger.info(
+        "Inference done: %d images, %.4f s/img compute (warmup-skipped), "
+        "%.4f s/img wall", num_images, steady, wall / max(num_images, 1),
+    )
+    if evaluator is None:
+        return {}
+    return evaluator.evaluate()
+
+
+# the latest run's {images, timed_images, s_per_image (warm-up left out),
+# wall_s_per_image}
+inference_on_dataset.last_timing = None

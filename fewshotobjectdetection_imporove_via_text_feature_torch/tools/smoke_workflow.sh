@@ -1,0 +1,69 @@
+#!/usr/bin/env bash
+# The few-shot workflow on the PyTorch package, step by step as
+# tools/smoke_workflow.sh runs it on the JAX package: synthetic VOC -> base
+# training -> randinit surgery (15 -> 20 classes) -> per-seed config ->
+# gfsod 1-shot fine-tune and evaluation -> extract_results, with a tiny
+# model.
+#
+#   bash fewshotobjectdetection_imporove_via_text_feature_torch/tools/smoke_workflow.sh [SAVE_DIR] [DEVICE]
+#
+# DEVICE is cpu (the default) or cuda. PCB rescoring is not ported yet
+# (ROADMAP.md Queue 1 item 11), so the fine-tune runs with
+# TEST.PCB_ENABLE False. The per-seed config is written into a copy of
+# configs/ under SAVE_DIR; nothing is written under configs/.
+set -e -o pipefail
+cd "$(dirname "$0")/../.."
+
+SAVE_DIR=${1:-${TMPDIR:-/tmp}/smoke_workflow_torch}
+DEVICE=${2:-cpu}
+PORT=fewshotobjectdetection_imporove_via_text_feature_torch
+rm -rf "${SAVE_DIR}"
+mkdir -p "${SAVE_DIR}"
+
+DATA_ROOT=${SAVE_DIR}/datasets
+export FSODTF_DATASETS=${DATA_ROOT}
+python -m ${PORT}.tools.make_synthetic_voc --root "${DATA_ROOT}" --shots 1 --seed 0
+
+TINY_OPTS="MODEL.DEVICE ${DEVICE}
+MODEL.RESNETS.DEPTH 14 MODEL.RESNETS.STEM_OUT_CHANNELS 8
+MODEL.RESNETS.RES2_OUT_CHANNELS 16 MODEL.RESNETS.WIDTH_PER_GROUP 4
+MODEL.BACKBONE.FREEZE_AT 0
+MODEL.RPN.PRE_NMS_TOPK_TRAIN 256 MODEL.RPN.POST_NMS_TOPK_TRAIN 64
+MODEL.RPN.PRE_NMS_TOPK_TEST 256 MODEL.RPN.POST_NMS_TOPK_TEST 64
+MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE 16
+MODEL.ROI_HEADS.SCORE_THRESH_TEST 0.0
+TPU.IMAGE_BUCKETS ((256,384),) TPU.MAX_GT 10 TPU.MAX_DETECTIONS_PRE_NMS 128
+TPU.COMPUTE_DTYPE float32
+INPUT.MIN_SIZE_TRAIN (256,) INPUT.MAX_SIZE_TRAIN 384
+INPUT.MIN_SIZE_TEST 256 INPUT.MAX_SIZE_TEST 384
+SOLVER.IMS_PER_BATCH 4 SOLVER.BASE_LR 0.001 SOLVER.WARMUP_ITERS 0
+SOLVER.CHECKPOINT_PERIOD 0 SEED 5"
+
+echo "=== 1. base training (15 classes) ==="
+python -m ${PORT}.cli --config-file configs/voc/defrcn_det_r101_base1.yaml \
+    --opts MODEL.WEIGHTS "" SOLVER.MAX_ITER 5 SOLVER.STEPS "(4,)" \
+    OUTPUT_DIR "${SAVE_DIR}/base1" ${TINY_OPTS}
+
+echo "=== 2. checkpoint surgery (15 -> 20 classes) ==="
+python -m ${PORT}.tools.model_surgery --dataset voc --method randinit \
+    --src-path "${SAVE_DIR}/base1/model_final.pth" --save-dir "${SAVE_DIR}/base1"
+
+echo "=== 3. create per-seed config ==="
+cp -r configs "${SAVE_DIR}/configs"
+python tools/create_config.py --dataset voc --config_root "${SAVE_DIR}/configs/voc" \
+    --shot 1 --seed 0 --setting gfsod --split 1
+CONFIG=${SAVE_DIR}/configs/voc/defrcn_gfsod_r101_novel1_1shot_seed0.yaml
+
+echo "=== 4. gfsod fine-tune + eval ==="
+OUT=${SAVE_DIR}/1shot_seed0
+python -m ${PORT}.cli --config-file "${CONFIG}" \
+    --opts MODEL.WEIGHTS "${SAVE_DIR}/base1/model_reset_surgery.pth" \
+    SOLVER.MAX_ITER 5 SOLVER.STEPS "(4,)" OUTPUT_DIR "${OUT}" \
+    TEST.PCB_ENABLE False ${TINY_OPTS} 2>&1 | tee "${OUT}.log"
+# the CLI writes OUT/log.txt, ending in the copypaste lines
+test -f "${OUT}/log.txt"
+
+echo "=== 5. aggregate ==="
+python tools/extract_results.py --res-dir "${SAVE_DIR}" --shot-list 1
+cat "${SAVE_DIR}/results.txt"
+echo "WORKFLOW SMOKE PASSED"

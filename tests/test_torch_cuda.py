@@ -14,7 +14,10 @@ backward kernel must agree with the autograd of the plain version within
 order) and within one bf16 step (2^-7 relative) more in bfloat16; a train
 step of a tiny detector through the kernels must agree with the same step
 through the plain versions (losses rtol 1e-4, gradients 1e-4 of each
-tensor's largest value).
+tensor's largest value); the evaluation path (page-locked test batches ->
+inference_on_dataset) through the kernels must match it through the plain
+versions (95% of each image's detections matched: class, IoU >= 0.9, score
+within 1e-3; AP50 within 0.5 points).
 """
 
 import numpy as np
@@ -327,3 +330,159 @@ def test_tiny_train_step_with_kernels_matches_plain_ops(card):
         assert float(got_g["backbone.res4.0.conv1.weight"].abs().max()) > 0
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+def _workflow_cfg(root):
+    """A tiny detector over a synthetic VOC at ``root``, on the card."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "MODEL.WEIGHTS", "", "MODEL.DEVICE", "cuda",
+        "MODEL.RESNETS.DEPTH", "14", "MODEL.RESNETS.STEM_OUT_CHANNELS", "8",
+        "MODEL.RESNETS.RES2_OUT_CHANNELS", "16",
+        "MODEL.RESNETS.WIDTH_PER_GROUP", "4", "MODEL.BACKBONE.FREEZE_AT", "0",
+        "MODEL.ROI_HEADS.NUM_CLASSES", "20",
+        "MODEL.RPN.PRE_NMS_TOPK_TEST", "600",
+        "MODEL.RPN.POST_NMS_TOPK_TEST", "300",
+        "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
+        "TPU.IMAGE_BUCKETS", "((192,256),)", "TPU.MAX_GT", "10",
+        "TPU.MAX_DETECTIONS_PRE_NMS", "256", "TPU.COMPUTE_DTYPE", "float32",
+        "INPUT.MIN_SIZE_TEST", "192", "INPUT.MAX_SIZE_TEST", "256",
+        "DATALOADER.NUM_WORKERS", "2",
+    ])
+    return cfg
+
+
+def _matched_share(a, b, iou_min=0.9, score_tol=1e-3):
+    """Share of ``a``'s detections (boxes, scores, classes) with one in
+    ``b`` of the same class, IoU >= iou_min and a score within
+    score_tol."""
+    if not len(a[0]):
+        return 1.0 if not len(b[0]) else 0.0
+    x, y = a[0].astype(np.float64), b[0].astype(np.float64)
+    lt = np.maximum(x[:, None, :2], y[None, :, :2])
+    rb = np.minimum(x[:, None, 2:], y[None, :, 2:])
+    inter = np.clip(rb - lt, 0, None).prod(-1)
+    area = lambda t: (t[:, 2] - t[:, 0]) * (t[:, 3] - t[:, 1])  # noqa
+    union = area(x)[:, None] + area(y)[None, :] - inter
+    iou = np.where(union > 0, inter / np.where(union > 0, union, 1), 0)
+    ok = ((iou >= iou_min) & (a[2][:, None] == b[2][None, :])
+          & (np.abs(a[1][:, None] - b[1][None, :]) <= score_tol))
+    return float(ok.any(axis=1).mean())
+
+
+def test_test_loader_and_inference_on_dataset_match_plain_ops(card, tmp_path):
+    """The evaluation path on the card: page-locked test batches (padded
+    tail) -> inference_on_dataset through the kernels, against the same
+    run through the plain versions; float32, TF32 off, deterministic
+    convolutions. Per image, at least 95% of each run's detections match
+    (same class, IoU >= 0.9, score within 1e-3) and AP50 is within 0.5
+    points."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint import (
+        init_weights,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        build_detection_test_loader,
+        register_all,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation import (
+        DatasetEvaluator,
+        PascalVOCDetectionEvaluator,
+        inference_on_dataset,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        build_model,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_voc import (
+        make_voc,
+    )
+
+    class Recorder(DatasetEvaluator):
+        def reset(self):
+            self.batches = []
+
+        def process_detections(self, *args):
+            self.batches.append(args)
+
+        def evaluate(self):
+            return {}
+
+    make_voc(str(tmp_path), images=6)
+    register_all(str(tmp_path))
+    cfg = _workflow_cfg(str(tmp_path))
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():  # live residual branches
+        for name, p in model.named_parameters():
+            if name.endswith("conv3.weight"):
+                p.normal_(0.0, 0.05, generator=gen)
+    model = model.to(card)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name in ("kernels", "plain"):
+            rec = Recorder()
+            counts = (nms_sorted_cuda.launches, roi_align_cuda.launches)
+            loader = build_detection_test_loader(
+                cfg, "voc_2007_test_all1", batch_size=4, pin_memory=True)
+            if name == "plain":
+                with plain_ops():
+                    inference_on_dataset(model, loader, rec)
+            else:
+                inference_on_dataset(model, loader, rec)
+            runs[name] = (rec.batches, nms_sorted_cuda.launches - counts[0],
+                          roi_align_cuda.launches - counts[1])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (got, nms_n, roi_n), (ref, plain_nms, plain_roi) = runs["kernels"], \
+        runs["plain"]
+    assert (nms_n, roi_n) == (2 * 2, 2 * 2)  # 2 batches: RPN + final; 2 chunks
+    assert (plain_nms, plain_roi) == (0, 0)
+    assert [len(b[0]) for b in got] == [4, 2]  # the padded tail is dropped
+    total = 0
+    for a, b in zip(got, ref):
+        assert list(a[0]) == list(b[0])
+        for i in range(len(a[0])):
+            da = tuple(x[i][a[4][i]] for x in a[1:4])
+            db = tuple(x[i][b[4][i]] for x in b[1:4])
+            total += len(da[0])
+            assert min(_matched_share(da, db), _matched_share(db, da)) >= 0.95
+    assert total > 20
+    ap = []
+    for batches in (got, ref):
+        ev = PascalVOCDetectionEvaluator("voc_2007_test_all1")
+        ev.reset()
+        for b in batches:
+            ev.process_detections(*b)
+        ap.append(ev.evaluate()["bbox"]["AP50"])
+    assert abs(ap[0] - ap[1]) <= 0.5
+
+
+def test_pinned_batches_reach_the_card_unchanged(card, tmp_path):
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        build_detection_test_loader,
+        device_batches,
+        register_all,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_voc import (
+        make_voc,
+    )
+
+    make_voc(str(tmp_path), images=5)
+    register_all(str(tmp_path))
+    cfg = _workflow_cfg(str(tmp_path))
+    host = list(build_detection_test_loader(cfg, "voc_2007_test_all1",
+                                            batch_size=2, pin_memory=True))
+    assert all(b[0].image.is_pinned() and b[1].boxes.is_pinned()
+               for b in host)
+    fed = list(device_batches(iter(host), card))
+    assert len(fed) == len(host) == 3
+    for (images, gt, meta), (h_images, h_gt, h_meta) in zip(fed, host):
+        assert images.image.is_cuda and gt.valid.is_cuda
+        assert torch.equal(images.image.cpu(), h_images.image)
+        assert torch.equal(gt.boxes.cpu(), h_gt.boxes)
+        assert meta == h_meta

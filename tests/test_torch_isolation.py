@@ -39,6 +39,33 @@ def test_importing_the_port_loads_no_jax():
     assert not [m for m in mods if _forbidden(m)]
 
 
+def test_importing_the_cli_tools_and_data_loads_no_jax_and_no_pil():
+    """The CLI, the tools (a namespace package, which walk_packages does
+    not enter) and the data, evaluation and utils modules import neither
+    JAX nor the JAX package; PIL is imported only where an image is read,
+    so the port imports on a machine without it."""
+    tools = sorted(p.stem for p in (ROOT / PORT / "tools").glob("*.py"))
+    assert {"make_synthetic_voc", "model_surgery"} <= set(tools)
+    names = [f"{PORT}.cli", f"{PORT}.dataloader", f"{PORT}.data.native_io",
+             f"{PORT}.data.loader", f"{PORT}.evaluation.voc_eval",
+             f"{PORT}.utils.events", f"{PORT}.engine.hooks",
+             *(f"{PORT}.tools.{t}" for t in tools)]
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(names) <= set(mods)
+    assert not [m for m in mods if _forbidden(m)]
+    assert not [m for m in mods if m == "PIL" or m.startswith("PIL.")]
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
