@@ -29,10 +29,12 @@ Phases, each of which fails the run on error:
      every kernel call in one more bf16 predict_batch of 8, captured;
   7. the ROIAlign backward kernel against the autograd of the plain
      version, float32 (TF32 off) within 1e-5 of the gradient's largest
-     value and bfloat16 within one bf16 step more, at the training launch
+     value and bfloat16 within one bf16 step more, and a second launch on
+     the same inputs bitwise equal to the first, at the training launch
      shape (16 images x 256 ROIs, P 7, bin_stride 2), at 1000 ROIs on one
-     image (P 7, bin_stride 1), at PCB's P=1, with C = 60 and with an
-     unaligned gradient;
+     image (P 7, bin_stride 1), at PCB's P=1, with C = 60, with an
+     unaligned gradient, and at the training shape with every ROI covering
+     most of the map (the most ROIs a tile of the kernel gathers);
   8. the Trainer on the same config at full width on seeded weights and
      synthetic 800x1344 batches (1-20 GT boxes an image): (a) float32,
      batch 2, one step through the kernels against one through the plain
@@ -95,7 +97,8 @@ ROI_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # differ by at most one bf16 step (2**-7 relative) where the sums straddle it
 ROI_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 # ROIAlign backward: float32 within 1e-5 of the gradient's largest value
-# (atomics add in a varying order); bf16 within one bf16 step more
+# (kernel and plain version sum in different orders); bf16 within one bf16
+# step more
 ROI_BWD_F32_ATOL = 1e-5
 ROI_BWD_BF16_RTOL = 2.0 ** -7
 # training step, float32, kernels vs plain ops
@@ -673,25 +676,89 @@ def roi_bwd_inputs(gen):
         ("B1_R100_P1_res5", 1, 100, 2048, 25, 42, 1, 1, 1 / 32.0),
         ("B2_R256_P7_s2_C60", 2, 256, 60, 50, 84, 7, 2, 1 / 16.0),
         ("B2_R256_P7_s2_unaligned", 2, 256, 1024, 50, 84, 7, 2, 1 / 16.0),
+        ("B16_R256_P7_s2_dense", 16, 256, 1024, 50, 84, 7, 2, 1 / 16.0),
     ]
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         for label, b, r, c, h, w, p, stride, scale in cases:
-            boxes = _roi_boxes(gen, b, r).cuda()
+            # the earlier cases draw from ``gen`` as they always did; the
+            # dense case has a generator of its own
+            g = gen
+            if label.endswith("dense"):
+                g = torch.Generator().manual_seed(6)
+                boxes = _dense_boxes(g, b, r).cuda()
+            else:
+                boxes = _roi_boxes(gen, b, r).cuda()
             p_out = len(range(0, p, stride))
             n = b * r * p_out * p_out * c
             skew = 1 if label.endswith("unaligned") else 0
-            flat = torch.randn(n + skew, generator=gen).to("cuda", dtype)
+            flat = torch.randn(n + skew, generator=g).to("cuda", dtype)
             g = flat[skew:].view(b, r, p_out, p_out, c).permute(0, 1, 4, 2, 3)
             out.append((f"{str(dtype).split('.')[-1]}_{label}",
                         (g, boxes, (b, c, h, w), p, scale, 0, stride)))
     return out
 
 
+def _dense_boxes(gen, b, r, img_h=800.0, img_w=1344.0):
+    """(b, r, 4) ROIs that each cover 70-100% of the 800x1344 bucket on
+    both axes: every tile of the backward kernel gathers every ROI."""
+    import torch
+
+    lo = torch.rand(b, r, 2, generator=gen) * 0.15
+    hi = 0.85 + torch.rand(b, r, 2, generator=gen) * 0.15
+    size = torch.tensor([img_w, img_h])
+    return torch.cat([lo * size, hi * size], dim=-1).float()
+
+
+def _bin_tiles(start, bin_size, grid, wsamp, size, p_out, s, tile):
+    """(R, P') the tiles of ``tile`` pixels along one axis that each emitted
+    bin's taps meet: the pixels where the plain version's interpolation
+    matrix has a weight, which are the kernel's taps."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align import (
+        _interp_matrix,
+    )
+
+    nz = _interp_matrix(start, bin_size, grid, wsamp, size, p_out, s) != 0
+    n_tiles = -(-size // tile)
+    nz = torch.nn.functional.pad(nz.to(torch.uint8),
+                                 (0, n_tiles * tile - size))
+    return nz.reshape(*nz.shape[:2], n_tiles, tile).amax(-1).sum(-1)
+
+
+def _bwd_design_bytes(g, boxes, shape, p, scale, sampling, stride):
+    """The bytes the tiled backward kernel moves: each CTA reads the
+    grad_out slab of every bin whose taps meet its tile (so a bin is read
+    once per tile it meets, its C channels over the slabs) and writes the
+    gradient once; the boxes count once, as in the function's own bytes
+    (each CTA reads its image's again, from L2). Returns (bytes, bin-tile
+    pairs)."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align import (
+        roi_sample_geometry,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align_cuda import (
+        BWD_TILE_COLS,
+        BWD_TILE_ROWS,
+    )
+
+    b, c, h, w = shape
+    geo = roi_sample_geometry(boxes.reshape(-1, 4), scale, p, sampling,
+                              stride, feat_hw=(h, w))
+    ty = _bin_tiles(geo.y1, geo.bin_h, geo.grid_y, geo.wy, h, geo.p_out,
+                    geo.sy, BWD_TILE_ROWS)
+    tx = _bin_tiles(geo.x1, geo.bin_w, geo.grid_x, geo.wx, w, geo.p_out,
+                    geo.sx, BWD_TILE_COLS)
+    bin_tiles = int((ty.sum(dim=1) * tx.sum(dim=1)).sum())
+    esize = g.element_size()
+    return (bin_tiles * c * esize + boxes.numel() * 4
+            + b * h * w * c * esize), bin_tiles
+
+
 def check_roi_align_bwd(key, args, reps=10):
     """The backward kernel against the autograd of the plain version (same
-    grad_out, same boxes), then timed as phase 4 times the forward; the
-    plain time is its backward pass alone."""
+    grad_out, same boxes), and a second launch bitwise equal to the first;
+    then timed as phase 4 times the forward; the plain time is its
+    backward pass alone."""
     import torch
     from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align import (
         roi_align_plain,
@@ -715,6 +782,14 @@ def check_roi_align_bwd(key, args, reps=10):
     if not torch.allclose(got.float(), ref32, rtol=rtol, atol=atol):
         raise PhaseError(f"roi_align_bwd[{key}]: max abs err {err} outside "
                          f"rtol {rtol}, atol {atol}")
+    bits = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+    again = roi_align_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(bits), again.view(bits)):
+        raise PhaseError(f"roi_align_bwd[{key}]: two launches differ in "
+                         f"{int((got.view(bits) != again.view(bits)).sum())}"
+                         f" elements")
+    del again
     ms = time_ms(lambda: roi_align_bwd_cuda(*args), reps)
     g_ms = graph_ms(lambda: roi_align_bwd_cuda(*args), reps)
     plain_ms = time_ms(lambda: torch.autograd.grad(out, feat, g,
@@ -725,12 +800,7 @@ def check_roi_align_bwd(key, args, reps=10):
     # the function's own bytes: grad_out and boxes read, the gradient of
     # the map written
     nbytes = g.numel() * esize + boxes.numel() * 4 + map_elems * esize
-    # this design's bytes: also a float32 map zeroed, accumulated (written)
-    # and read once to round it (bf16), or returned (float32)
-    f32_passes = 3 if g.dtype == torch.bfloat16 else 2
-    design_bytes = g.numel() * esize + boxes.numel() * 4 \
-        + map_elems * 4 * f32_passes \
-        + (map_elems * esize if g.dtype == torch.bfloat16 else 0)
+    design_bytes, bin_tiles = _bwd_design_bytes(*args)
     spb = _samples_per_bin(boxes, h, w, p, stride, sampling, scale)
     p_out = len(range(0, p, stride))
     # 8 operations a bilinear sample: 4 taps, a multiply and an add each
@@ -742,12 +812,15 @@ def check_roi_align_bwd(key, args, reps=10):
                bound_by="operations" if bound_ops >= bound_bytes
                else "bytes",
                design_bound_ms=design_bytes / HBM_BYTES_PER_S * 1e3)
+    n_bins = b * boxes.shape[1] * p_out * p_out
     log(f"roi_align_bwd[{key}] map {b}x{h}x{w}x{c}, {boxes.shape[1]} ROIs "
         f"an image, {spb:.2f} samples a bin: max abs err {err:.3g} (gradient"
-        f" max {float(ref32.abs().max()):.3g}); kernel {ms:.4f} ms a call "
-        f"enqueued from Python ({g_ms:.4f} ms graph replay), plain "
-        f"{plain_ms:.3f} ms, bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}), with this design's float32 buffer "
+        f" max {float(ref32.abs().max()):.3g}), two launches bitwise equal; "
+        f"kernel {ms:.4f} ms a call enqueued from Python ({g_ms:.4f} ms "
+        f"graph replay), plain {plain_ms:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}), this design's bytes "
+        f"(grad_out read once for each of {bin_tiles} bin-tiles, "
+        f"{bin_tiles / max(n_bins, 1):.3f} a bin; gradient written once) "
         f"{res['design_bound_ms']:.4f} ms")
     return res
 
@@ -973,7 +1046,9 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
     """(b) bfloat16 at IMS_PER_BATCH: Trainer.train over warm-up and timed
     steps, each ended by a CUDA event and one synchronize after the run;
     the launch counters span the whole run. With ``profile_dir``, one more
-    step is profiled after it; then (c) one more is captured."""
+    step is profiled after it. Returns the launches a step with the step
+    times and peak memory, the run's launch counts, and a function that
+    takes one more step on the first batch (for (c))."""
     import statistics
 
     import torch
@@ -1029,12 +1104,10 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
         profile_call(f"bf16 train step, batch {batch}",
                      lambda: trainer.train_step(images, gt, steps),
                      profile_dir, f"profile_bf16_train_step_{batch}.txt")
-    phase_train_inputs(capture_kernel_inputs(
-        lambda: trainer.train_step(images, gt, steps + 1)))
-    del trainer
-    torch.cuda.empty_cache()
-    return {**{k: v // steps for k, v in counts.items()},
-            "median_ms": med, "window_ms": window}, counts
+    return ({**{k: v // steps for k, v in counts.items()},
+             "median_ms": med, "window_ms": window,
+             "peak_gib": peak / 2**30}, counts,
+            lambda: trainer.train_step(images, gt, steps + 1))
 
 
 def phase_train_inputs(calls, label="train_path"):
@@ -1526,8 +1599,11 @@ def main(argv) -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_f32(tmp)
-        per_step, train_counts = phase_train_bf16(tmp,
-                                                  profile_dir=profile_dir)
+        per_step, train_counts, next_step = phase_train_bf16(
+            tmp, profile_dir=profile_dir)
+        phase_train_inputs(capture_kernel_inputs(next_step))
+        del next_step
+        torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         fed_counts, eval_counts, workflow = phase_workflow(tmp, profile_dir)
     log(f"workflow summary (phase 9 beside phase 8 (b); step ms from CUDA "

@@ -7,9 +7,10 @@ its autodiff gradient; the plain versions are
 tensors only: they launch their kernel or raise. The forward kernel takes
 any C: it reads 8 channels a thread with 16-byte loads where C is a
 multiple of 8 and the bases are 16-byte aligned, and channel by channel
-elsewhere. The backward kernel scatters into a float32 buffer with atomics
-(summation order varies from run to run), which the wrapper rounds once to
-bf16 for a bf16 gradient.
+elsewhere. The backward kernel gathers over tiles of pixels: it writes
+every element of the gradient once, in grad_out's dtype (bf16 rounded once
+from a float32 sum), summing in a fixed order, so two launches on the same
+inputs give bitwise-equal gradients.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward kernel's tile of pixels, rows x columns: kTileH and kTileW in
+# csrc/roi_align.cu, which a test reads to hold these to them
+BWD_TILE_ROWS, BWD_TILE_COLS = 16, 8
 
 
 def _lib(name="fsod_roi_align_fwd"):
@@ -110,20 +114,19 @@ def roi_align_bwd_cuda(grad_out: torch.Tensor, boxes: torch.Tensor,
     # permuted view the forward returned
     g = grad_out.permute(0, 1, 3, 4, 2).contiguous()
     boxes = boxes.to(torch.float32).contiguous()
-    # the kernel zeroes this buffer and sums into it in float32
-    grad32 = torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
+    # the kernel writes every element, zeros included
+    grad = torch.empty((b, h, w, c), dtype=grad_out.dtype, device=dev)
     fn = _lib("fsod_roi_align_bwd")
     with torch.cuda.device(dev):
         err = fn(
             g.data_ptr(), _DTYPES[grad_out.dtype], boxes.data_ptr(),
-            grad32.data_ptr(), b, h, w, c, s, output_size, bin_stride,
+            grad.data_ptr(), b, h, w, c, s, output_size, bin_stride,
             float(spatial_scale), sampling_ratio,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     cuda_build.check(err, "fsod_roi_align_bwd")
     roi_align_bwd_cuda.launches += 1
-    # bf16: rounded once to nearest-even; float32: the buffer itself
-    return grad32.to(grad_out.dtype).permute(0, 3, 1, 2)
+    return grad.permute(0, 3, 1, 2)
 
 
 roi_align_bwd_cuda.launches = 0

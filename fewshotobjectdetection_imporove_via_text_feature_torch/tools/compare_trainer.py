@@ -8,13 +8,14 @@ this checkout's, on one card, on the same batches in host memory:
 
 Each turn (earlier, current, current, earlier) is a process of its own that
 imports the package from one checkout, builds that checkout's kernels and
-runs ``chip_smoke.py``'s phase 8 (b) and (c), this checkout's version, on
-it: ``Trainer(cfg, batches)`` on configs/voc/defrcn_det_r101_base1.yaml at
-full width, bf16, SOLVER.IMS_PER_BATCH 16, over two synthetic 800x1344
+runs ``chip_smoke.py``'s phase 8 (b), this checkout's version, on it
+(not (c), which would hold an earlier checkout's kernels to this one's
+contract): ``Trainer(cfg, batches)`` on
+configs/voc/defrcn_det_r101_base1.yaml at full width, bf16, SOLVER.IMS_PER_BATCH 16, over two synthetic 800x1344
 batches, 2 warm-up and 10 timed steps, each ended by a CUDA event with no
 synchronize between steps. So only the package differs between turns.
 Prints each turn's output and, last, a JSON object of each checkout's
-median and mean step ms, by turn.
+median and mean step ms and peak memory (GiB), by turn.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 smoke.phase_build()
 with tempfile.TemporaryDirectory() as tmp:
-    per_step, _ = smoke.phase_train_bf16(tmp)
+    per_step, _, _ = smoke.phase_train_bf16(tmp)
 print(json.dumps(per_step))
 """
 
@@ -60,9 +61,11 @@ def main(argv=None):
     for name, checkout in (("earlier", earlier), ("current", ROOT),
                            ("current", ROOT), ("earlier", earlier)):
         res = turn(checkout)
-        times[name].append({k: res[k] for k in ("median_ms", "window_ms")})
+        times[name].append({k: res[k] for k in ("median_ms", "window_ms",
+                                                 "peak_gib")})
         print(f"turn {name}: median step {res['median_ms']:.2f} ms, mean "
-              f"{res['window_ms']:.2f} ms", flush=True)
+              f"{res['window_ms']:.2f} ms, peak memory "
+              f"{res['peak_gib']:.3f} GiB", flush=True)
     print(json.dumps(times))
 
 

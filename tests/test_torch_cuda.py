@@ -10,8 +10,9 @@ ROIAlign must agree within rtol/atol 1e-5 in float32 with TF32 off (the two
 sum in different orders) and within 1e-2 in bfloat16 (both round an f32
 sum once to bf16, so they may differ by one bf16 step). The ROIAlign
 backward kernel must agree with the autograd of the plain version within
-1e-5 of the gradient's largest value in float32 (atomics add in a varying
-order) and within one bf16 step (2^-7 relative) more in bfloat16; a train
+1e-5 of the gradient's largest value in float32 (the two sum in different
+orders) and within one bf16 step (2^-7 relative) more in bfloat16, and two
+of its launches on the same inputs must be bitwise equal; a train
 step of a tiny detector through the kernels must agree with the same step
 through the plain versions (losses rtol 1e-4, gradients 1e-4 of each
 tensor's largest value); the evaluation path (page-locked test batches ->
@@ -216,6 +217,23 @@ def test_roi_align_bwd_kernel_matches_plain_gradient(card, dtype, name):
     _assert_grad_close(got, ref)
     if name == "s0":
         assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_two_launches_are_bitwise_equal(card, dtype):
+    """Every pixel sums its (ROI, bin) terms in one fixed order, so the
+    gradient does not change from launch to launch; on ``dense`` every tile
+    gathers every ROI."""
+    feat, boxes, p, scale, sampling, stride = roi_case("dense")
+    boxes = torch.from_numpy(boxes).to(card)
+    g = torch.from_numpy(roi_grad_out("dense")).to(card, dtype)
+    first = roi_align_bwd_cuda(g, boxes, feat.shape, p, scale, sampling,
+                               stride)
+    second = roi_align_bwd_cuda(g, boxes, feat.shape, p, scale, sampling,
+                                stride)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(first.view(bits), second.view(bits))
+    assert first.abs().sum() > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -21,6 +21,10 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.ops.nms import (
     nms_sorted_plain,
     tiles_visited,
 )
+from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align_cuda import (
+    BWD_TILE_COLS,
+    BWD_TILE_ROWS,
+)
 
 
 # ------------------------------------------------------------------ NMS
@@ -102,6 +106,28 @@ def _rois(rng, b, s, img_h, img_w):
     return boxes.astype(np.float32)
 
 
+def _tile_edge_boxes(rng, s, h, w):
+    """(s, 4) boxes for ``tile_edges`` (scale 1, P 2, 2 x 2 samples a bin:
+    an axis of length L samples at start + L (1, 3, 5, 7) / 8, exactly in
+    float32): on each axis the first sample or the last one lands on a
+    tile's last pixel, on the pixel after it or half a pixel between, and
+    some past the map's partial last tile."""
+    def axis(tile, size):
+        edges = np.arange(tile, size + 1, tile, dtype=np.float64)
+        targets = np.concatenate([edges - 1.5, edges - 1.0, edges - 0.5,
+                                  edges, [size - 1.0, size - 0.5, size,
+                                          size + 0.5]])
+        t = rng.choice(targets, s)
+        length = rng.choice([2.0, 4.0, 8.0], s)
+        by_last = rng.rand(s) < 0.5
+        # feature start: the last sample (7/8 of L in) or the first (1/8)
+        start = np.where(by_last, t - 0.875 * length, t - 0.125 * length)
+        return start + 0.5, start + 0.5 + length  # image coordinates
+    x1, x2 = axis(BWD_TILE_COLS, w)
+    y1, y2 = axis(BWD_TILE_ROWS, h)
+    return np.stack([x1, y1, x2, y2], -1).astype(np.float32)
+
+
 def roi_case(name):
     """(features (B, C, H, W) float32, boxes (B, S, 4) float32, P, scale,
     sampling_ratio, bin_stride)."""
@@ -121,9 +147,23 @@ def roi_case(name):
         s = 0
     elif name == "pcb":  # P 1 on res5 at 1/32 (the 800x1344 bucket)
         scale, p, stride, c, h, w, s = 1 / 32.0, 1, 1, 2048, 25, 42, 6
+    elif name == "dense":  # every ROI covers most of a map of several tiles
+        h, w, s = 37, 30, 16
+    elif name == "tile_edges":
+        scale, p, sampling, stride, h, w, s = 1.0, 2, 2, 1, 37, 27, 24
+    elif name == "many":  # more ROIs than one pass of the backward's reads
+        s = 300
     elif name != "outside":
         raise KeyError(name)
     feat = rng.randn(b, c, h, w).astype(np.float32)
+    if name == "dense":
+        lo = rng.uniform(0.0, 0.15, (b, s, 2)) * [w / scale, h / scale]
+        hi = rng.uniform(0.85, 1.0, (b, s, 2)) * [w / scale, h / scale]
+        return (feat, np.concatenate([lo, hi], -1).astype(np.float32), p,
+                scale, sampling, stride)
+    if name == "tile_edges":
+        boxes = np.stack([_tile_edge_boxes(rng, s, h, w) for _ in range(b)])
+        return feat, boxes, p, scale, sampling, stride
     boxes = _rois(rng, b, s, h / scale, w / scale)
     if name == "outside":  # wholly off the map, on every side
         far = np.array([[-900, -900, -300, -400], [2000, 10, 2600, 90],
@@ -134,7 +174,7 @@ def roi_case(name):
 
 
 ROI_CASES = ["c60", "c1024", "c2048", "h_gt_w", "w_ge_h", "fixed2", "s0",
-             "outside", "pcb"]
+             "outside", "pcb", "dense", "tile_edges", "many"]
 
 
 def roi_grad_out(name):
@@ -212,3 +252,64 @@ def test_roi_case_shapes(name):
     g = roi_grad_out(name)
     p_out = len(range(0, p, stride))
     assert g.shape == (*boxes.shape[:2], feat.shape[1], p_out, p_out)
+
+
+def _footprints(name):
+    """Per axis, (first, last) pixel that each ROI's taps touch, with the
+    map's height and width; from the plain version's interpolation
+    matrices."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align import (
+        _interp_matrix,
+        roi_sample_geometry,
+    )
+
+    feat, boxes, p, scale, sampling, stride = roi_case(name)
+    h, w = feat.shape[2:]
+    geo = roi_sample_geometry(_t(boxes).reshape(-1, 4), scale, p, sampling,
+                              stride, feat_hw=(h, w))
+    out = []
+    for start, size_, grid, ws, size, s in (
+            (geo.y1, geo.bin_h, geo.grid_y, geo.wy, h, geo.sy),
+            (geo.x1, geo.bin_w, geo.grid_x, geo.wx, w, geo.sx)):
+        hit = (_interp_matrix(start, size_, grid, ws, size, geo.p_out, s)
+               != 0).any(dim=1).numpy()
+        pix = np.arange(size)
+        out.append((np.where(hit, pix, size).min(1),
+                    np.where(hit, pix, -1).max(1)))
+    return out, (h, w)
+
+
+def test_roi_case_dense_covers_most_of_the_map():
+    ((y0, y1), (x0, x1)), (h, w) = _footprints("dense")
+    assert (y1 - y0 + 1 >= 0.7 * h).all() and (x1 - x0 + 1 >= 0.7 * w).all()
+    assert h > BWD_TILE_ROWS and w > 2 * BWD_TILE_COLS  # several tiles
+
+
+def test_roi_case_tile_edges_end_and_start_on_tile_edges():
+    ((y0, y1), (x0, x1)), (h, w) = _footprints("tile_edges")
+    assert h % BWD_TILE_ROWS and w % BWD_TILE_COLS
+    for first, last, tile, size in ((y0, y1, BWD_TILE_ROWS, h),
+                                    (x0, x1, BWD_TILE_COLS, w)):
+        assert ((last + 1) % tile == 0).any()   # ends on a tile's last pixel
+        assert (first % tile == 0).any()        # starts on a tile's first
+        assert (last == size - 1).any()         # reaches the partial tile
+
+
+def test_roi_case_many_needs_more_than_one_pass_of_box_reads():
+    _, boxes, *_ = roi_case("many")
+    assert boxes.shape[1] > 256
+
+
+def test_bwd_tile_is_the_kernel_source_s_tile():
+    """The tile the cases and chip_smoke.py's design bytes use is the one
+    the backward kernel is built with."""
+    import pathlib
+    import re
+
+    import fewshotobjectdetection_imporove_via_text_feature_torch.ops as ops
+
+    src = (pathlib.Path(ops.__file__).parents[1] / "csrc"
+           / "roi_align.cu").read_text()
+    got = {k: int(v) for k, v in
+           re.findall(r"constexpr int (kTile[HW]) = (\d+);", src)}
+    assert got == {"kTileH": BWD_TILE_ROWS, "kTileW": BWD_TILE_COLS}
