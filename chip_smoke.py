@@ -50,7 +50,12 @@ Phases, each of which fails the run on error:
      ``Trainer`` as ``cli.do_train`` builds it, ``cli.main``) on the same
      config at full width, its own INPUT sizes, its three IMAGE_BUCKETS
      and IMS_PER_BATCH 16, bf16, on synthetic VOC made by the port's maker
-     (800 images of 500x375 a year): the train loader alone (images/s); 20
+     (800 images of 500x375 a year), MODEL.WEIGHTS a synthetic Caffe2
+     ImageNet R-101 .pkl (every blob under its real name; the matched and
+     unmatched counts printed, every backbone and res5 tensor of the
+     Trainer's model equal to its blob) and TEST.PCB_MODELPATH a synthetic
+     torchvision R-101 .pth (522 tensors), both from the port's weight
+     maker: the train loader alone (images/s); 20
      base-training steps fed by the loader, each ended by a CUDA event, the
      first step of each bucket apart; with --profile, one loader-fed step
      profiled (after 3 that warm the loader); phases 3, 4 and 7 again on
@@ -59,19 +64,38 @@ Phases, each of which fails the run on error:
      surgery 15 -> 20 classes; the gfsod 1-shot seed-0 config
      (tools/create_config.py, into a copy of configs/); 4 fine-tune steps
      and the evaluation of the 800 test images at the CLI's batch of 32
-     (images/s over the last 20 batches, bAP50/nAP50 finite, the log.txt
-     copypaste contract); phases 3 and 4 again on one evaluation batch's
-     own inputs (the fine-tuned 20-class model, batch 32);
-     tools/extract_results.py. Launches are counted over the training and
-     over the fine-tune with its evaluation, each against its expected
-     count.
+     with PCB on, as the config sets it, SCORE_THRESH_TEST and PCB_LOWER
+     at 0 (EVAL_THRESHOLDS: a random detector keeps no box at 0.05);
+     images/s over the last 20 batches, the prototype build time, PCB's
+     ROIAlign launches a batch, bAP50/nAP50 finite, the log.txt copypaste
+     contract; the same
+     evaluation with PCB off (images/s); phases 3 and 4 again on one
+     evaluation batch's own inputs (the fine-tuned 20-class model, batch
+     32), PCB's ROIAlign calls on that batch included (float32), and that
+     batch's PCB scores through the kernels against plain_ops() (float32,
+     TF32 off, within 1e-5); tools/extract_results.py. Launches are counted
+     over the training, over the fine-tune with its evaluation and over the
+     evaluation with PCB off, each against its expected count, PCB's
+     included;
+ 10. COCO at 80 classes, through the CLI at full width: synthetic COCO
+     (the port's maker: the cocosplit layout, a 1-shot seed, 256 test
+     images of 640x480); a seeded 60-class model saved as a detectron2
+     .pth (numpy arrays under "model") and read back by the importer;
+     randinit surgery 60 -> 80; the gfsod 1-shot seed-0 config; 2 fine-tune
+     steps and the evaluation at the CLI's batch of 32 with PCB on (COCO's
+     60 base classes excluded; EVAL_THRESHOLDS): AP, bAP and nAP finite,
+     images/s, launches
+     against their expected counts; the kernels again on one COCO
+     evaluation batch's own inputs (the final NMS site at 80 classes, the
+     res5 and PCB ROIAlign calls) and its PCB scores against plain_ops().
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b) and 9, by path, and launches per train step),
+main paths of phases 5, 8 (b), 9 and 10, by path, PCB's apart, and launches
+per train step),
 then the card's name and power limit, then as the last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result, when CUDA is absent or the package is missing.
@@ -108,6 +132,10 @@ TRAIN_GRADS = ("affine_rcnn.weight", "backbone.res4.0.conv3.weight",
                "roi_heads.res5.0.conv3.weight",
                "proposal_generator.rpn_head.conv.weight",
                "roi_heads.box_predictor.cls_score.weight")
+# PCB's rescored scores, float32 with TF32 off, kernels vs plain ops: the
+# ROIAlign outputs differ by summation order only (ROI_F32_TOL), and a
+# cosine of 1000-d vectors carries that through at about the same size
+PCB_SCORE_TOL = 1e-5
 # end to end, float32, kernels vs plain ops: a detection matches when a
 # detection of the other run has its class, IoU >= 0.9 and a score within
 # 1e-3; at least 95% of each run's detections must match, per image
@@ -328,6 +356,32 @@ def _samples_per_bin(boxes, h, w, p, bin_stride, sampling, scale):
     return float((gy * gx).float().mean())
 
 
+def _tapped_pixels(boxes, h, w, p, bin_stride, sampling, scale):
+    """The (image, pixel) pairs that some ROI of the image reads with a
+    nonzero weight: the map bytes the function must read are these pixels'
+    channels, not the whole map. A ROI's emitted bins read the outer
+    product of the rows and the columns its bins tap (the nonzero entries
+    of the plain version's interpolation matrices)."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops.roi_align import (
+        _interp_matrix,
+        roi_sample_geometry,
+    )
+
+    b, r = boxes.shape[:2]
+    if r == 0:
+        return 0
+    geo = roi_sample_geometry(boxes.reshape(-1, 4), scale, p, sampling,
+                              bin_stride, feat_hw=(h, w))
+    rows = (_interp_matrix(geo.y1, geo.bin_h, geo.grid_y, geo.wy, h,
+                           geo.p_out, geo.sy) != 0).any(dim=1)
+    cols = (_interp_matrix(geo.x1, geo.bin_w, geo.grid_x, geo.wx, w,
+                           geo.p_out, geo.sx) != 0).any(dim=1)
+    hit = torch.einsum("brh,brw->bhw", rows.reshape(b, r, h).float(),
+                       cols.reshape(b, r, w).float())
+    return int((hit > 0).sum())
+
+
 def roi_inputs(gen):
     """Phase 4's cases on a 50x84x1024 map (the res4 map of the 800x1344
     bucket): first the main path's own launch shape (8 images, one 256-ROI
@@ -397,7 +451,10 @@ def check_roi_align(key, args, tol, reps=10):
     plain_ms = time_ms(lambda: roi_align_plain(*args), 3)
     esize = feat.element_size()
     p_out = len(range(0, p, stride))
-    nbytes = feat.numel() * esize + boxes.numel() * 4 \
+    # the map pixels the boxes tap (each read once, all its channels), the
+    # boxes, the output written once
+    tapped = _tapped_pixels(boxes, h, w, p, stride, sampling, scale)
+    nbytes = tapped * c * esize + boxes.numel() * 4 \
         + boxes.shape[0] * boxes.shape[1] * p_out * p_out * c * esize
     spb = _samples_per_bin(boxes, h, w, p, stride, sampling, scale)
     # 8 operations a bilinear sample (4 taps, a multiply and an add each)
@@ -410,7 +467,8 @@ def check_roi_align(key, args, tol, reps=10):
                bound_by="operations" if bound_ops >= bound_bytes
                else "bytes")
     log(f"roi_align[{key}] map {b}x{h}x{w}x{c}, {boxes.shape[1]} ROIs an "
-        f"image, {spb:.2f} samples a bin: max abs err {err:.3g} (tol {tol}); "
+        f"image, {spb:.2f} samples a bin, {tapped / (b * h * w):.3f} of the "
+        f"map tapped: max abs err {err:.3g} (tol {tol}); "
         f"kernel {ms:.4f} ms a call enqueued from Python ({g_ms:.4f} ms "
         f"graph replay), plain {plain_ms:.3f} ms, bound "
         f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
@@ -1142,6 +1200,15 @@ RESIDENT_STEPS = 5  # one loader batch stepped again, without and with a
 # loader decoding beside the steps
 
 
+# evaluation thresholds of phases 9 and 10: a briefly trained random
+# detector scores every box below the configs' SCORE_THRESH_TEST (0.05)
+# and keeps none, so PCB would rescore nothing; at 0 each image keeps its
+# DETECTIONS_PER_IMAGE (100), as a trained detector does on real images,
+# and PCB_LOWER 0 lets PCB rescore them
+EVAL_THRESHOLDS = ("MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
+                   "TEST.PCB_LOWER", "0.0")
+
+
 def _workflow_args(config, out_dir, *opts):
     """The CLI's argv: the config's own INPUT sizes, IMAGE_BUCKETS and
     IMS_PER_BATCH, bf16, seeded weights, no periodic checkpoint."""
@@ -1174,18 +1241,20 @@ def _drained(loader):
     return finish
 
 
-def phase_workflow(tmp, profile_dir=None):
+def phase_workflow(tmp, tv_pth, profile_dir=None):
     """The few-shot workflow through the port's CLI at full width, on
-    synthetic VOC at 500x375: the loader alone; base training built as
-    cli.do_train builds it, fed by the loader, each step ended by a CUDA
-    event; one loader-fed step profiled (--profile) and one checked
-    against the plain ops; that batch stepped again without and with a
-    loader decoding beside it; randinit surgery 15 -> 20 classes; the gfsod
-    1-shot seed-0 config; a fine-tune and the evaluation of the test set
-    through cli.main; the kernels checked on one evaluation batch's own
-    inputs; extract_results.py. Returns the kernel launches of the
-    loader-fed training and of the fine-tune with its evaluation, and the
-    numbers to print."""
+    synthetic VOC at 500x375: the loader alone; base training from a
+    synthetic Caffe2 ImageNet .pkl, built as cli.do_train builds it, fed by
+    the loader, each step ended by a CUDA event; one loader-fed step
+    profiled (--profile) and one checked against the plain ops; that batch
+    stepped again without and with a loader decoding beside it; randinit
+    surgery 15 -> 20 classes; the gfsod 1-shot seed-0 config; a fine-tune
+    and the evaluation of the test set with PCB (``tv_pth`` its ResNet)
+    through cli.main, then the evaluation again with PCB off; the kernels
+    checked on one evaluation batch's own inputs, PCB's calls included;
+    extract_results.py. Returns the kernel launches of the loader-fed
+    training, of the fine-tune with its evaluation and of the evaluation
+    with PCB off, and the numbers to print."""
     import math
     import shutil
     import statistics
@@ -1214,6 +1283,9 @@ def phase_workflow(tmp, profile_dir=None):
     from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_voc import (
         make_voc,
     )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_weights import (
+        write_c2_pkl,
+    )
 
     try:
         import PIL
@@ -1229,9 +1301,12 @@ def phase_workflow(tmp, profile_dir=None):
         f"decode core {'built' if native_io.available() else 'unavailable'}")
     runs = os.path.join(tmp, "runs")
     base_out = os.path.join(runs, "base1")
+    # the base config's MODEL.WEIGHTS: an ImageNet R-101 in Caffe2 format
+    pkl = os.path.join(tmp, "R-101.pkl")
+    blobs = write_c2_pkl(pkl, seed=0)
     cfg = cli.setup(cli.default_argument_parser().parse_args(
-        _workflow_args(CONFIG, base_out, "SOLVER.MAX_ITER",
-                       str(WORKFLOW_BASE_STEPS))))
+        _workflow_args(CONFIG, base_out, "MODEL.WEIGHTS", pkl,
+                       "SOLVER.MAX_ITER", str(WORKFLOW_BASE_STEPS))))
     register_all(root)
     batch = cfg.SOLVER.IMS_PER_BATCH
     dev = cfg.MODEL.DEVICE
@@ -1263,6 +1338,7 @@ def phase_workflow(tmp, profile_dir=None):
     # evaluation hook: EVAL_PERIOD is MAX_ITER), each step ended by a CUDA
     # event, one synchronize after the run
     trainer = Trainer(cfg)
+    check_c2_import(pkl, blobs, cfg, trainer.model)
     trainer.resume_or_load(resume=False)
     hook, ends, losses = _step_end_hook(trainer)
     trainer.hooks.append(hook)
@@ -1274,9 +1350,12 @@ def phase_workflow(tmp, profile_dir=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     train_counts = read()
+    # a step pools its sampled ROIs in chunks of TPU.ROI_CHUNK
+    step_chunks = -(-cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+                    // cfg.TPU.ROI_CHUNK)
     want = {"greedy_nms": WORKFLOW_BASE_STEPS,
-            "roi_align_v2_fwd": 2 * WORKFLOW_BASE_STEPS,
-            "roi_align_v2_bwd": 2 * WORKFLOW_BASE_STEPS}
+            "roi_align_v2_fwd": step_chunks * WORKFLOW_BASE_STEPS,
+            "roi_align_v2_bwd": step_chunks * WORKFLOW_BASE_STEPS}
     if train_counts != want:
         raise PhaseError(f"workflow base training: launches {train_counts}, "
                          f"expected {want}")
@@ -1386,21 +1465,27 @@ def phase_workflow(tmp, profile_dir=None):
     ft_config = os.path.join(tmp, "configs", "voc",
                              "defrcn_gfsod_r101_novel1_1shot_seed0.yaml")
 
-    # 4. fine-tune, then the evaluation, through cli.main
+    # 4. fine-tune, then the evaluation with PCB (as the config sets it),
+    # through cli.main; then the same evaluation with PCB off
     ft_out = os.path.join(runs, "1shot_seed0")
     read = _reset_counts()
     results = cli.main(_workflow_args(
         ft_config, ft_out, "MODEL.WEIGHTS", surgery, "SOLVER.MAX_ITER",
-        str(WORKFLOW_FT_STEPS), "TEST.PCB_ENABLE", "False"))
+        str(WORKFLOW_FT_STEPS), "TEST.PCB_MODELPATH", tv_pth,
+        *EVAL_THRESHOLDS))
     ft_counts = read()
     timing = inference_on_dataset.last_timing
     bbox = results["voc_2007_test_all1"]["bbox"]
     n_images = timing["images"]
     batches = -(-n_images // cli.EVAL_BATCH_SIZE)
     chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // cfg.TPU.ROI_CHUNK)
+    ft_cfg = get_cfg()
+    ft_cfg.merge_from_file(ft_config)
+    proto_launches, batch_launches = pcb_expected_launches(ft_cfg)
     want = {"greedy_nms": WORKFLOW_FT_STEPS + 2 * batches,
-            "roi_align_v2_fwd": 2 * WORKFLOW_FT_STEPS + chunks * batches,
-            "roi_align_v2_bwd": 2 * WORKFLOW_FT_STEPS}
+            "roi_align_v2_fwd": step_chunks * WORKFLOW_FT_STEPS
+            + chunks * batches + proto_launches + batch_launches * batches,
+            "roi_align_v2_bwd": step_chunks * WORKFLOW_FT_STEPS}
     if ft_counts != want:
         raise PhaseError(f"workflow fine-tune + eval: launches {ft_counts}, "
                          f"expected {want}")
@@ -1411,40 +1496,48 @@ def phase_workflow(tmp, profile_dir=None):
              if ln.strip()]
     if not ("copypaste" in lines[-1] and "copypaste" in lines[-2]):
         raise PhaseError(f"workflow log.txt ends {lines[-2:]}")
+    pcb_nums = _pcb_numbers(timing, proto_launches, batch_launches, batches)
     log(f"workflow fine-tune ({WORKFLOW_FT_STEPS} steps, 20 classes) and "
         f"evaluation of {n_images} test images at batch "
-        f"{cli.EVAL_BATCH_SIZE}: {1 / timing['s_per_image']:.2f} images/s "
-        f"over the last {timing['timed_images']} (the first 5 batches left "
-        f"out), {1 / timing['wall_s_per_image']:.2f} images/s wall; "
-        f"launches {ft_counts}; bAP50 {bbox['bAP50']:.4f}, nAP50 "
+        f"{cli.EVAL_BATCH_SIZE}, PCB on: {1 / timing['s_per_image']:.2f} "
+        f"images/s over the last {timing['timed_images']} (the first 5 "
+        f"batches left out), {1 / timing['wall_s_per_image']:.2f} images/s "
+        f"wall; PCB {timing['pcb_s']:.3f} s in execute_calibration, "
+        f"{pcb_nums['share_of_eval_wall']:.4f} of the wall; launches "
+        f"{ft_counts} as expected (PCB's ROIAlign: {proto_launches} for the "
+        f"prototypes, {batch_launches} a batch, from the dataset dicts); "
+        f"bAP50 {bbox['bAP50']:.4f}, nAP50 "
         f"{bbox['nAP50']:.4f} (seeded weights: plumbing, not accuracy)")
     for ln in lines[-3:]:
         log(f"workflow log.txt: {ln.split(': ', 1)[-1]}")
+    final = os.path.join(ft_out, "model_final.pth")
+    read = _reset_counts()
+    cli.main(["--eval-only"] + _workflow_args(
+        ft_config, os.path.join(runs, "pcb_off"), "MODEL.WEIGHTS", final,
+        "TEST.PCB_ENABLE", "False", *EVAL_THRESHOLDS))
+    off_counts = read()
+    off = inference_on_dataset.last_timing
+    want = {"greedy_nms": 2 * batches, "roi_align_v2_fwd": chunks * batches,
+            "roi_align_v2_bwd": 0}
+    if off_counts != want:
+        raise PhaseError(f"workflow eval, PCB off: launches {off_counts}, "
+                         f"expected {want}")
+    pcb_nums["off_images_per_s"] = 1 / off["s_per_image"]
+    pcb_nums["on_images_per_s"] = 1 / timing["s_per_image"]
+    log(f"workflow evaluation of the same {off['images']} images, PCB off: "
+        f"{1 / off['s_per_image']:.2f} images/s over the last "
+        f"{off['timed_images']}, {1 / off['wall_s_per_image']:.2f} images/s "
+        f"wall (PCB on: {1 / timing['s_per_image']:.2f} and "
+        f"{1 / timing['wall_s_per_image']:.2f}); PCB's share of the wall "
+        f"time by the two runs "
+        f"{1 - off['wall_s_per_image'] / timing['wall_s_per_image']:.4f}; "
+        f"launches {off_counts}")
 
     # the kernels on one evaluation batch's own inputs: the fine-tuned
-    # 20-class model at the CLI's evaluation batch
-    ft_cfg = get_cfg()
-    ft_cfg.merge_from_file(ft_config)
-    ft_cfg.merge_from_list(["MODEL.WEIGHTS",
-                            os.path.join(ft_out, "model_final.pth"),
-                            "TPU.COMPUTE_DTYPE", "bfloat16"])
-    model = cli.build_test_model(ft_cfg)
-    feed = device_batches(build_detection_test_loader(
-        ft_cfg, "voc_2007_test_all1", batch_size=cli.EVAL_BATCH_SIZE,
-        prefetch=False, pin_memory=pin), dev)
-    images, _, _ = next(feed)
-    feed.close()
-    with torch.inference_mode():
-        calls = capture_kernel_inputs(lambda: model.forward_inference(images))
-    # the copies made in inference mode, copied again as plain tensors
-    calls = {k: [tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                       for a in args) for args in v]
-             for k, v in calls.items()}
-    log(f"workflow: kernels on one evaluation batch's own inputs, images "
-        f"{tuple(images.image.shape[:3])}, "
-        f"{ft_cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes")
-    phase_main_path_inputs(calls, chunks, "eval_path")
-    del model, images, calls
+    # 20-class model at the CLI's evaluation batch, and PCB on its
+    # detections
+    pcb_nums.update(check_eval_batch(ft_config, final, "voc_2007_test_all1",
+                                     tv_pth, chunks, "eval_path"))
     torch.cuda.empty_cache()
 
     # 5. aggregate
@@ -1454,12 +1547,362 @@ def phase_workflow(tmp, profile_dir=None):
         raise PhaseError(f"extract_results: {table}")
     for ln in table.strip().splitlines():
         log(f"workflow results.txt: {ln}")
-    return train_counts, ft_counts, dict(
+    return train_counts, ft_counts, off_counts, dict(
         loader_images_per_s=loader_rate,
         fed_step_ms=statistics.median(all_steady), fed_step_ms_by_bucket=med,
         fed_window_ms=window, resident_bucket=bucket, resident_ms=resident,
         contended_ms=contended, eval_batch=cli.EVAL_BATCH_SIZE,
-        eval_images_per_s=1 / timing["s_per_image"])
+        eval_images_per_s=1 / timing["s_per_image"], pcb=pcb_nums)
+
+
+def _plain_copies(calls):
+    """Captured kernel arguments made in inference mode, copied again as
+    plain tensors."""
+    import torch
+
+    return {k: [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args) for args in v]
+            for k, v in calls.items()}
+
+
+def check_c2_import(pkl, blobs, cfg, model):
+    """The Caffe2 file through the importer into a model of ``cfg`` (the
+    matched and unmatched counts), and ``model`` (the Trainer's, built
+    from MODEL.WEIGHTS) holding every backbone and res5 tensor of it."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint import (
+        load_reference_weights,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint.torch_import import (
+        c2_to_d2,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        build_model,
+    )
+
+    matched, skipped = load_reference_weights(pkl, build_model(cfg))
+    state = model.state_dict()
+    targets = [k for k in state
+               if k.startswith(("backbone.", "roi_heads.res5."))
+               and not k.endswith(("running_mean", "running_var"))]
+    named = {c2_to_d2(n): v for n, v in blobs.items()
+             if c2_to_d2(n) is not None}
+    wrong = [k for k in targets if k not in named or not torch.equal(
+        state[k].cpu(), torch.from_numpy(named[k]))]
+    log(f"workflow: MODEL.WEIGHTS a synthetic Caffe2 ImageNet R-101 "
+        f"({len(blobs)} blobs under their real names): {matched} matched, "
+        f"{len(skipped)} unmatched {sorted(skipped)}; the Trainer's model "
+        f"holds {len(targets) - len(wrong)} of its {len(targets)} backbone "
+        f"and res5 tensors (convolutions, FrozenBN scales and shifts) "
+        f"equal to their blobs")
+    if matched != len(targets) or wrong or sorted(skipped) != [
+            "pred_b", "pred_w"]:
+        raise PhaseError(f"Caffe2 import: matched {matched} of "
+                         f"{len(targets)}, unmatched {skipped}, not loaded "
+                         f"{wrong[:5]}")
+
+
+def _pcb_pad(rec):
+    """PCB's padded size of a record's image: each side rounded up to 64."""
+    return -(-rec["height"] // 64) * 64, -(-rec["width"] // 64) * 64
+
+
+def pcb_expected_launches(cfg):
+    """PCB's ROIAlign launches, worked out from the dataset dicts (not from
+    PCB's own counter): one for each padded size in each chunk of
+    SUPPORT_CHUNK support images, for the prototypes; then one for each
+    padded size among an evaluation batch's images. The synthetic test
+    sets hold one image size (checked), so that is one a batch: at
+    EVAL_THRESHOLDS every test image has detections in PCB's window.
+    Returns (prototype launches, launches an evaluation batch)."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        get_detection_dataset_dicts,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation.pcb import (
+        SUPPORT_CHUNK,
+    )
+
+    support = [r for r in get_detection_dataset_dicts(
+        [cfg.DATASETS.TRAIN[0]], filter_empty=True) if r["annotations"]]
+    proto = sum(len({_pcb_pad(r) for r in support[i:i + SUPPORT_CHUNK]})
+                for i in range(0, len(support), SUPPORT_CHUNK))
+    sizes = {_pcb_pad(r) for r in get_detection_dataset_dicts(
+        list(cfg.DATASETS.TEST), filter_empty=False)}
+    if len(sizes) != 1:
+        raise PhaseError(f"PCB launches: the test set has padded sizes "
+                         f"{sorted(sizes)}, one expected")
+    return proto, 1
+
+
+def _pcb_numbers(timing, proto_launches, batch_launches, batches):
+    wall = timing["wall_s_per_image"] * timing["images"]
+    return dict(prototype_launches=proto_launches,
+                launches_per_batch=batch_launches,
+                pcb_calls=proto_launches + batch_launches * batches,
+                calibration_s=timing["pcb_s"],
+                share_of_eval_wall=timing["pcb_s"] / wall)
+
+
+def _fmt_pcb(d):
+    return (f"PCB: {d['prototypes']} prototypes built in "
+            f"{d['prototype_s']:.3f} s ({d['prototype_launches']} ROIAlign "
+            f"launches), {d['launches_per_batch']} ROIAlign launch(es) a "
+            f"batch, {d['calibration_s']:.3f} s in execute_calibration, "
+            f"{d['share_of_eval_wall']:.4f} of the evaluation's wall time")
+
+
+def check_eval_batch(config, weights, dataset, tv_pth, chunks, label):
+    """Phases 3 and 4 again on one evaluation batch's own inputs, at the
+    CLI's batch: NMS at both sites and the ``chunks`` res5 ROIAlign calls
+    of the fine-tuned detector (bf16); then a PCB block of the same config
+    (``tv_pth`` its ResNet; its prototype build timed and its launches
+    counted), its ROIAlign calls on that batch's detections (float32,
+    within ROI_F32_TOL, one for each padded size among the images it
+    rescores); and that batch's PCB scores, no class excluded, through the
+    kernels against those through plain_ops(), float32 with TF32 off and
+    deterministic convolutions, within PCB_SCORE_TOL.
+    Returns PCB's numbers."""
+    import numpy as np
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        build_detection_test_loader,
+        device_batches,
+        get_detection_dataset_dicts,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation.pcb import (
+        PrototypicalCalibrationBlock,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops import (
+        plain_ops,
+    )
+
+    cfg = get_cfg()
+    cfg.merge_from_file(config)
+    cfg.merge_from_list(["MODEL.WEIGHTS", weights,
+                         "TPU.COMPUTE_DTYPE", "bfloat16",
+                         "TEST.PCB_MODELPATH", tv_pth, *EVAL_THRESHOLDS])
+    model = cli.build_test_model(cfg)
+    feed = device_batches(build_detection_test_loader(
+        cfg, dataset, batch_size=cli.EVAL_BATCH_SIZE, prefetch=False,
+        pin_memory=cfg.MODEL.DEVICE == "cuda"), cfg.MODEL.DEVICE)
+    images, _, meta = next(feed)
+    feed.close()
+    with torch.inference_mode():
+        calls = capture_kernel_inputs(lambda: model.forward_inference(images))
+        det = model.forward_inference(images)
+    n = meta["valid_count"]
+    fields = {k: getattr(det, k)[:n].cpu().numpy()
+              for k in ("boxes", "scores", "classes", "valid")}
+    ids, files = meta["image_ids"][:n], meta["file_names"][:n]
+    log(f"{label}: kernels on one evaluation batch's own inputs, images "
+        f"{tuple(images.image.shape[:3])}, "
+        f"{cfg.MODEL.ROI_HEADS.NUM_CLASSES} classes, "
+        f"{int(fields['valid'].sum())} detections")
+    phase_main_path_inputs(_plain_copies(calls), chunks, label)
+    del model, images, calls, det
+    torch.cuda.empty_cache()
+
+    proto_launches, _ = pcb_expected_launches(cfg)
+    read = _reset_counts()
+    pcb = PrototypicalCalibrationBlock(cfg)
+    torch.cuda.synchronize()
+    built = read()
+    if built["roi_align_v2_fwd"] != proto_launches or built[
+            "greedy_nms"] or built["roi_align_v2_bwd"]:
+        raise PhaseError(f"{label} PCB prototypes: launches {built}, "
+                         f"expected {proto_launches} ROIAlign")
+    # the padded sizes of the images PCB rescores: those with a detection
+    # in its window
+    pads = {r["file_name"]: _pcb_pad(r)
+            for r in get_detection_dataset_dicts([dataset], False)}
+    window = fields["valid"] & (fields["scores"] > cfg.TEST.PCB_LOWER) & (
+        fields["scores"] <= cfg.TEST.PCB_UPPER)
+    want_launches = len({pads[f] for f, hit in zip(files, window.any(1))
+                         if hit})
+
+    def rescore():
+        det_np = {k: v.copy() for k, v in fields.items()}
+        return pcb.execute_calibration(ids, det_np, file_names=files)[
+            "scores"]
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    excluded = pcb.exclude_cls
+    try:
+        got = {}
+        pcalls = capture_kernel_inputs(
+            lambda: got.setdefault("main", rescore()))
+        # the comparison with no class excluded, so that every detection
+        # in the window is rescored (random weights may put them all in
+        # excluded base classes)
+        pcb.exclude_cls = []
+        got["all"] = rescore()
+        with plain_ops():
+            ref = rescore()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        pcb.exclude_cls = excluded
+    pcalls = _plain_copies(pcalls)
+    moved = int((got["main"] != fields["scores"]).sum())
+    moved_all = int((got["all"] != fields["scores"]).sum())
+    err = float(np.abs(got["all"] - ref).max())
+    log(f"{label}: PCB on that batch: {moved} scores rescored "
+        f"({len(excluded)} classes excluded), {moved_all} with none "
+        f"excluded; {len(pcalls['roi_align'])} ROIAlign launches; those "
+        f"scores through the kernels vs plain_ops() (float32, TF32 off): "
+        f"max abs err {err:.3g} (tol {PCB_SCORE_TOL})")
+    if pcalls["nms"] or pcalls["roi_align_bwd"] or len(
+            pcalls["roi_align"]) != want_launches:
+        raise PhaseError(f"{label} PCB: captured {len(pcalls['nms'])} NMS, "
+                         f"{len(pcalls['roi_align'])} ROIAlign and "
+                         f"{len(pcalls['roi_align_bwd'])} backward calls; "
+                         f"{want_launches} ROIAlign expected")
+    if moved_all == 0 or err > PCB_SCORE_TOL:
+        raise PhaseError(f"{label} PCB: {moved_all} scores rescored, kernels "
+                         f"vs plain ops max abs err {err}")
+    roi = [check_roi_align(f"{label}_pcb{i}", args, ROI_F32_TOL)
+           for i, args in enumerate(pcalls["roi_align"])]
+    return dict(prototypes=len(pcb.prototypes),
+                prototype_s=pcb.prototype_seconds,
+                batch_launches=len(roi),
+                launch_ms=sum(r["ms"] for r in roi) / len(roi),
+                launch_graph_ms=sum(r["graph_ms"] for r in roi) / len(roi),
+                launch_max_abs_err=max(r["max_abs_err"] for r in roi),
+                launch_bound_ms=sum(r["bound_ms"] for r in roi) / len(roi),
+                score_err=err, rescored=moved, rescored_none_excluded=moved_all)
+
+
+# ---------------------------------------------------------------- phase 10
+# synthetic COCO at 640x480: 32 trainval images hold every class (three
+# boxes an image), the test set is 8 batches of 32, so 3 are timed after
+# the evaluator's 5 warm-up batches
+COCO_TRAIN_IMAGES = 32
+COCO_TEST_IMAGES = 256
+COCO_FT_STEPS = 2
+COCO_BASE = os.path.join(ROOT, "configs", "coco", "defrcn_det_r101_base.yaml")
+
+
+def phase_coco(tmp, tv_pth):
+    """COCO at 80 classes through the CLI at full width: a seeded 60-class
+    model saved as a detectron2 .pth, randinit surgery 60 -> 80, the gfsod
+    1-shot seed-0 config, a fine-tune and the evaluation with PCB; the
+    kernels on one COCO evaluation batch's own inputs. Returns the launches
+    and the numbers to print."""
+    import math
+    import shutil
+
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+    from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint import (
+        init_weights,
+        load_reference_weights,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation import (
+        inference_on_dataset,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        build_model,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        model_surgery,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_coco import (
+        make_coco,
+    )
+
+    root = os.path.join(tmp, "datasets")
+    t0 = time.perf_counter()
+    make_coco(root, train_images=COCO_TRAIN_IMAGES,
+              test_images=COCO_TEST_IMAGES, image_size=(640, 480))
+    os.environ["FSODTF_DATASETS"] = root
+    log(f"coco: synthetic COCO, {COCO_TRAIN_IMAGES} trainval and "
+        f"{COCO_TEST_IMAGES} test images of 640x480, 1-shot seed 0, made "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    # a base model as detectron2 saves one converted from another format:
+    # numpy arrays under "model"
+    cfg = get_cfg()
+    cfg.merge_from_file(COCO_BASE)
+    base = build_model(cfg)
+    init_weights(base, torch.Generator().manual_seed(0))
+    base_dir = os.path.join(tmp, "runs", "coco_base")
+    os.makedirs(base_dir)
+    base_pth = os.path.join(base_dir, "model_final.pth")
+    state = {k: v.numpy() for k, v in base.state_dict().items()}
+    torch.save({"model": state, "__author__": "chip_smoke"}, base_pth)
+    matched, skipped = load_reference_weights(base_pth, build_model(cfg))
+    log(f"coco: a seeded {cfg.MODEL.ROI_HEADS.NUM_CLASSES}-class base model "
+        f"as a detectron2 .pth of numpy arrays, read back: {matched} of "
+        f"{len(state)} matched, {len(skipped)} unmatched")
+    if matched != len(state) or skipped:
+        raise PhaseError(f"coco: detectron2 import matched {matched} of "
+                         f"{len(state)}: {skipped[:5]}")
+    surgery = model_surgery.main([
+        "--dataset", "coco", "--method", "randinit", "--src-path", base_pth,
+        "--save-dir", base_dir])
+    shutil.copytree(os.path.join(ROOT, "configs"),
+                    os.path.join(tmp, "configs"))
+    _run_script("create_config.py", "--dataset", "coco14", "--config_root",
+                os.path.join(tmp, "configs", "coco"), "--shot", "1",
+                "--seed", "0", "--setting", "gfsod")
+    ft_config = os.path.join(tmp, "configs", "coco",
+                             "defrcn_gfsod_r101_novel_1shot_seed0.yaml")
+
+    out = os.path.join(tmp, "runs", "coco_1shot_seed0")
+    read = _reset_counts()
+    results = cli.main(_workflow_args(
+        ft_config, out, "MODEL.WEIGHTS", surgery, "SOLVER.MAX_ITER",
+        str(COCO_FT_STEPS), "TEST.PCB_MODELPATH", tv_pth, *EVAL_THRESHOLDS))
+    counts = read()
+    timing = inference_on_dataset.last_timing
+    bbox = results["coco14_test_all"]["bbox"]
+    ft_cfg = get_cfg()
+    ft_cfg.merge_from_file(ft_config)
+    ncls = ft_cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    batches = -(-timing["images"] // cli.EVAL_BATCH_SIZE)
+    chunks = -(-ft_cfg.MODEL.RPN.POST_NMS_TOPK_TEST // ft_cfg.TPU.ROI_CHUNK)
+    # a training step pools its sampled ROIs in chunks too
+    step_chunks = -(-ft_cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+                    // ft_cfg.TPU.ROI_CHUNK)
+    proto_launches, batch_launches = pcb_expected_launches(ft_cfg)
+    want = {"greedy_nms": COCO_FT_STEPS + 2 * batches,
+            "roi_align_v2_fwd": step_chunks * COCO_FT_STEPS
+            + chunks * batches + proto_launches + batch_launches * batches,
+            "roi_align_v2_bwd": step_chunks * COCO_FT_STEPS}
+    if counts != want:
+        raise PhaseError(f"coco fine-tune + eval: launches {counts}, "
+                         f"expected {want}")
+    if ncls != 80 or timing["images"] != COCO_TEST_IMAGES or not all(
+            math.isfinite(bbox[k]) for k in ("AP", "bAP", "nAP")):
+        raise PhaseError(f"coco eval: {ncls} classes, {timing['images']} "
+                         f"images, {bbox}")
+    nums = _pcb_numbers(timing, proto_launches, batch_launches, batches)
+    nums["images_per_s"] = 1 / timing["s_per_image"]
+    log(f"coco fine-tune ({COCO_FT_STEPS} steps, {ncls} classes) and "
+        f"evaluation of {timing['images']} test images at batch "
+        f"{cli.EVAL_BATCH_SIZE}, PCB on: {nums['images_per_s']:.2f} "
+        f"images/s over the last {timing['timed_images']}, "
+        f"{1 / timing['wall_s_per_image']:.2f} images/s wall; PCB "
+        f"{timing['pcb_s']:.3f} s in execute_calibration, "
+        f"{nums['share_of_eval_wall']:.4f} of the wall; launches {counts} "
+        f"as expected (PCB's ROIAlign: {proto_launches} for the prototypes, "
+        f"{batch_launches} a batch, from the dataset dicts); AP "
+        f"{bbox['AP']:.4f}, bAP "
+        f"{bbox['bAP']:.4f}, nAP {bbox['nAP']:.4f} (seeded weights: "
+        f"plumbing, not accuracy)")
+    nums.update(check_eval_batch(
+        ft_config, os.path.join(out, "model_final.pth"), "coco14_test_all",
+        tv_pth, chunks, "coco_eval_path"))
+    return counts, nums
 
 
 def _run_script(name, *argv):
@@ -1604,8 +2047,27 @@ def main(argv) -> int:
         phase_train_inputs(capture_kernel_inputs(next_step))
         del next_step
         torch.cuda.empty_cache()
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_weights import (
+        write_torchvision_pth,
+    )
+
     with tempfile.TemporaryDirectory() as tmp:
-        fed_counts, eval_counts, workflow = phase_workflow(tmp, profile_dir)
+        # TEST.PCB_MODELPATH of phases 9 and 10: a torchvision R-101
+        tv_pth = os.path.join(tmp, "resnet101.pth")
+        write_torchvision_pth(tv_pth, seed=0)
+        fed_counts, eval_counts, off_counts, workflow = phase_workflow(
+            os.path.join(tmp, "voc"), tv_pth, profile_dir)
+        coco_counts, coco = phase_coco(os.path.join(tmp, "coco"), tv_pth)
+    pcb = workflow["pcb"]
+    log(f"PCB summary (phases 9 and 10; {card}): VOC {_fmt_pcb(pcb)}; "
+        f"evaluation {pcb['on_images_per_s']:.2f} images/s with PCB, "
+        f"{pcb['off_images_per_s']:.2f} without; PCB's ROIAlign on an "
+        f"evaluation batch's own inputs {pcb['launch_ms']:.4f} ms a launch "
+        f"enqueued ({pcb['launch_graph_ms']:.4f} graph replay), bound "
+        f"{pcb['launch_bound_ms']:.4f} ms; COCO {_fmt_pcb(coco)}; "
+        f"evaluation {coco['images_per_s']:.2f} images/s; PCB's ROIAlign on "
+        f"a COCO batch {coco['launch_ms']:.4f} ms a launch "
+        f"({coco['launch_graph_ms']:.4f} graph replay)")
     log(f"workflow summary (phase 9 beside phase 8 (b); step ms from CUDA "
         f"events, no synchronize between steps): loader alone "
         f"{workflow['loader_images_per_s']:.2f} images/s; loader-fed step "
@@ -1624,14 +2086,20 @@ def main(argv) -> int:
         name = k["name"]
         # every main path's launches: serving (phase 5), training on
         # resident batches (phase 8 (b)), the workflow's loader-fed
-        # training (phase 9) and its fine-tune with evaluation (phase 9)
-        k["launches"] = (counts[name] + train_counts[name] + fed_counts[name]
-                         + eval_counts[name])
+        # training, its fine-tune with evaluation (PCB on) and the
+        # evaluation with PCB off (phase 9), and COCO (phase 10)
         k["launches_by_path"] = {
             "serving": counts[name], "training": train_counts[name],
             "workflow_training": fed_counts[name],
-            "workflow_finetune_and_eval": eval_counts[name]}
+            "workflow_finetune_and_eval_pcb": eval_counts[name],
+            "workflow_eval_pcb_off": off_counts[name],
+            "coco_finetune_and_eval_pcb": coco_counts[name]}
+        k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
+        if name == "roi_align_v2_fwd":
+            k["pcb_launches_by_path"] = {
+                "workflow_finetune_and_eval_pcb": pcb["pcb_calls"],
+                "coco_finetune_and_eval_pcb": coco["pcb_calls"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,22 @@ from .checkpointer import (
     Checkpointer,
     load_checkpoint_file,
     load_jax_checkpoint,
-    read_weights,
 )
 from .convert import init_weights, state_dict_from_jax_params
+from .torch_import import (
+    load_reference_weights,
+    load_torch_state,
+    maybe_load_reference_weights,
+)
 from .surgery import reset_optimizer, surgery_randinit, surgery_remove
 
 __all__ = [
     "Checkpointer",
     "load_checkpoint_file",
     "load_jax_checkpoint",
-    "read_weights",
+    "load_reference_weights",
+    "load_torch_state",
+    "maybe_load_reference_weights",
     "init_weights",
     "state_dict_from_jax_params",
     "reset_optimizer",

@@ -13,7 +13,8 @@ thread after the tensors are copied to the host.
 optax classes (the optimizer state's containers) unpickle as inert
 stand-ins, numpy arrays as themselves, and any other class is refused; the
 flax params go through ``state_dict_from_jax_params``. An orbax directory
-checkpoint raises.
+checkpoint raises. ``MODEL.WEIGHTS`` files of every format load through
+``torch_import.maybe_load_reference_weights``.
 """
 
 from __future__ import annotations
@@ -70,22 +71,6 @@ def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """The model weights of a JAX package pickle checkpoint, as this
     package's ``state_dict``."""
     return state_dict_from_jax_params(load_checkpoint_file(path)["params"])
-
-
-def read_weights(path: str) -> Dict[str, torch.Tensor]:
-    """The model weights in ``path``: a JAX package pickle checkpoint
-    (``.ckpt``) or a checkpoint of this package (``.pth``)."""
-    if path.endswith(".ckpt"):
-        return load_jax_checkpoint(path)
-    if path.endswith(".pth"):
-        return torch.load(path, map_location="cpu",
-                          weights_only=True)["model"]
-    raise NotImplementedError(
-        f"MODEL.WEIGHTS {path!r}: importing ImageNet (Caffe2 .pkl) and "
-        "detectron2 weights is ROADMAP.md Queue 1 item 8; pass "
-        "state_dict=, a JAX package .ckpt or a checkpoint of this "
-        "package (.pth)"
-    )
 
 
 def _fsync_dir(path: str) -> None:

@@ -14,9 +14,10 @@ whole log, ending in the "copypaste:" lines that
 ``tools/extract_results.py`` scrapes. ``MODEL.WEIGHTS ""`` starts from
 weights drawn from the seed.
 
-Not ported yet, and refused: more than one GPU or machine (ROADMAP.md Queue
-1 item 15), ``TPU.SPATIAL_PARTITION > 1`` (item 15) and PCB rescoring,
-``TEST.PCB_ENABLE True`` (item 11).
+``TEST.PCB_ENABLE True`` rescores the detections with PCB
+(``evaluation/pcb.py``). Not ported yet, and refused: more than one GPU or
+machine (ROADMAP.md Queue 1 item 15) and ``TPU.SPATIAL_PARTITION > 1``
+(item 15).
 """
 
 from __future__ import annotations
@@ -70,9 +71,11 @@ def check_cli_config(cfg, args=None) -> None:
     if cfg.TPU.SPATIAL_PARTITION > 1:
         raise _not_ported("TPU.SPATIAL_PARTITION > 1",
                           "Queue 1 item 15 (multi-device)")
-    if cfg.TEST.PCB_ENABLE:
-        raise _not_ported("TEST.PCB_ENABLE True (PCB rescoring)",
-                          "Queue 1 item 11 (PCB); pass TEST.PCB_ENABLE False")
+    if cfg.TEST.PCB_ENABLE and cfg.TEST.PCB_MODELTYPE != "resnet":
+        # PCB raises so too, after training: say it before
+        raise NotImplementedError(
+            f"TEST.PCB_MODELTYPE {cfg.TEST.PCB_MODELTYPE!r}: only 'resnet' "
+            "exists (the reference raises the same way)")
 
 
 def setup(args):
@@ -141,36 +144,35 @@ def resolve_eval_iter_checkpoint(output_dir: str, eval_iter: int) -> str:
 
 def build_evaluator(cfg, dataset_name, output_dir):
     from .data import MetadataCatalog
-    from .evaluation import PascalVOCDetectionEvaluator
+    from .evaluation import COCOEvaluator, PascalVOCDetectionEvaluator
 
     etype = MetadataCatalog.get(dataset_name).get("evaluator_type")
     if etype == "pascal_voc":
         return PascalVOCDetectionEvaluator(dataset_name, output_dir)
     if etype == "coco":
-        raise _not_ported(f"COCO evaluation of {dataset_name!r}",
-                          "Queue 1 item 12 (COCO)")
+        return COCOEvaluator(dataset_name, output_dir)
     raise NotImplementedError(f"no evaluator for {dataset_name} ({etype})")
 
 
 def build_test_model(cfg):
-    """The model of ``cfg`` on its device, in eval mode, with MODEL.WEIGHTS
-    (a ``.pth`` or a JAX ``.ckpt``), or weights drawn from seed 0."""
+    """The model of ``cfg`` on its device, in eval mode: weights drawn from
+    seed 0, then MODEL.WEIGHTS (``.pkl``, ``.pth`` or a JAX ``.ckpt``)."""
     import torch
 
-    from .checkpoint import init_weights, read_weights
+    from .checkpoint import init_weights, maybe_load_reference_weights
     from .engine.predictor import resolve_device
     from .models import build_model
 
     model = build_model(cfg)
     init_weights(model, torch.Generator().manual_seed(0))
-    if cfg.MODEL.WEIGHTS:
-        model.load_state_dict(read_weights(cfg.MODEL.WEIGHTS))
+    maybe_load_reference_weights(cfg.MODEL.WEIGHTS, model)
     return model.to(resolve_device(cfg)).eval()
 
 
 def do_test(cfg, model=None):
-    """Evaluate on every dataset of cfg.DATASETS.TEST; prints the
-    copypaste rows and exits 1 when TEST.EXPECTED_RESULTS fails."""
+    """Evaluate on every dataset of cfg.DATASETS.TEST, with PCB when
+    TEST.PCB_ENABLE; prints the copypaste rows and exits 1 when
+    TEST.EXPECTED_RESULTS fails."""
     from .data import build_detection_test_loader
     from .evaluation import (
         inference_on_dataset,
@@ -182,12 +184,17 @@ def do_test(cfg, model=None):
     if model is None:
         model = build_test_model(cfg)
     pin = next(model.parameters()).is_cuda
+    pcb = None
+    if cfg.TEST.PCB_ENABLE:
+        from .evaluation.pcb import PrototypicalCalibrationBlock
+
+        pcb = PrototypicalCalibrationBlock(cfg)
     results = {}
     for dataset_name in cfg.DATASETS.TEST:
         loader = build_detection_test_loader(
             cfg, dataset_name, batch_size=EVAL_BATCH_SIZE, pin_memory=pin)
         evaluator = build_evaluator(cfg, dataset_name, cfg.OUTPUT_DIR)
-        res = inference_on_dataset(model, loader, evaluator,
+        res = inference_on_dataset(model, loader, evaluator, pcb=pcb,
                                    no_gt=cfg.TEST.NO_GT_EVAL)
         results[dataset_name] = res
         print_csv_format(res)

@@ -1,10 +1,11 @@
-"""Built-in dataset registration, counterpart of the VOC part of the JAX
-package's ``data/builtin.py``, with the reference's dataset names
+"""Built-in dataset registration, counterpart of the JAX package's
+``data/builtin.py``, with the reference's dataset names
 (defrcn/data/builtin.py:10-95) so configs and run scripts carry over.
 
 VOC = {year} x {trainval base/all, 2007-test base/novel/all} x split id,
-plus the 30-seeded k-shot few-shot names. The COCO names are registered
-too, and reading one raises: COCO is ROADMAP.md Queue 1 item 12.
+plus the 30-seeded k-shot few-shot names; COCO = trainval/test x
+all/base/novel over the cocosplit json layout, plus the 10-seeded k-shot
+names.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from __future__ import annotations
 import os
 
 from .builtin_meta import _get_builtin_metadata
-from .catalog import DatasetCatalog, MetadataCatalog
+from .catalog import DatasetCatalog
+from .meta_coco import register_meta_coco
 from .meta_voc import register_meta_voc
 
 _registered_root = None
@@ -67,25 +69,29 @@ def _voc_fewshot_splits():
     return out
 
 
-def _coco_names():
-    names = ["coco14_trainval_all", "coco14_trainval_base"]
-    names += [f"coco14_test_{kind}" for kind in ("all", "base", "novel")]
-    names += [
-        f"coco14_trainval_{prefix}_{shot}shot_seed{seed}"
+_COCO_TRAINVAL_JSON = "cocosplit/datasplit/trainvalno5k.json"
+_COCO_5K_JSON = "cocosplit/datasplit/5k.json"
+
+
+def register_all_coco(root="datasets"):
+    splits = [
+        ("coco14_trainval_all", "coco/trainval2014", _COCO_TRAINVAL_JSON),
+        ("coco14_trainval_base", "coco/trainval2014", _COCO_TRAINVAL_JSON),
+    ]
+    splits += [(f"coco14_test_{kind}", "coco/val2014", _COCO_5K_JSON)
+               for kind in ("all", "base", "novel")]
+    splits += [
+        (f"coco14_trainval_{prefix}_{shot}shot_seed{seed}",
+         "coco/trainval2014", "")
         for prefix in ("all", "novel")
         for shot in (1, 2, 3, 5, 10, 30)
         for seed in range(10)
     ]
-    return names
-
-
-def _coco_not_ported(name):
-    def load():
-        raise NotImplementedError(
-            f"dataset {name!r}: COCO is not ported to the PyTorch package "
-            "yet: ROADMAP.md Queue 1 item 12 (COCO)"
-        )
-    return load
+    meta = _get_builtin_metadata("coco_fewshot")
+    for name, imgdir, annofile in splits:
+        register_meta_coco(name, meta, os.path.join(root, imgdir),
+                           os.path.join(root, annofile), root=root)
+    return [name for name, _, _ in splits]
 
 
 def register_all_voc(root="datasets"):
@@ -112,9 +118,5 @@ def register_all(root="datasets"):
     for name in _registered_names:
         DatasetCatalog.remove(name)
     _registered_root, _registered_names = None, []
-    names = register_all_voc(root)
-    for name in _coco_names():
-        DatasetCatalog.register(name, _coco_not_ported(name))
-        MetadataCatalog.get(name).set(evaluator_type="coco")
-        names.append(name)
+    names = register_all_coco(root) + register_all_voc(root)
     _registered_root, _registered_names = root, names

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.convert import init_weights
+from ..checkpoint.torch_import import maybe_load_reference_weights
 from ..data.mapper import pick_bucket, resize_shortest_edge_size
 from ..models import build_model
 from ..structures import ImageBatch
@@ -65,7 +66,8 @@ class DefaultPredictor:
 
     ``state_dict``: this package's (detectron2-named) weights, for example
     from ``checkpoint.state_dict_from_jax_params``. Without it the model
-    gets the JAX package's initialisers drawn from ``seed``.
+    gets the JAX package's initialisers drawn from ``seed``, then
+    ``MODEL.WEIGHTS`` when it names a file (``.pkl``, ``.pth``, ``.ckpt``).
     """
 
     # batch sizes predict_batch runs at (images padded up to the next one)
@@ -82,14 +84,9 @@ class DefaultPredictor:
         model = build_model(cfg)
         if state_dict is not None:
             model.load_state_dict(state_dict)
-        elif cfg.MODEL.WEIGHTS:
-            raise NotImplementedError(
-                f"MODEL.WEIGHTS {cfg.MODEL.WEIGHTS!r}: checkpoint import is "
-                "ROADMAP Queue 1 item 8; pass state_dict=, or set "
-                "MODEL.WEIGHTS '' for seeded weights"
-            )
         else:
             init_weights(model, torch.Generator().manual_seed(seed))
+            maybe_load_reference_weights(cfg.MODEL.WEIGHTS, model)
         self.model = model.to(self.device).eval()
 
     @torch.inference_mode()

@@ -30,7 +30,11 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from ..checkpoint import Checkpointer, init_weights, read_weights
+from ..checkpoint import (
+    Checkpointer,
+    init_weights,
+    maybe_load_reference_weights,
+)
 from ..data.loader import build_detection_train_loader, device_batches
 from ..models import build_model
 from ..solver import build_gradient_clipper, build_optimizer, build_scheduler
@@ -114,8 +118,8 @@ class Trainer:
     GTInstances[, meta])`` batches of CPU tensors, or None for
     ``build_detection_train_loader(cfg, seed=self.seed)``. ``device``
     overrides ``cfg.MODEL.DEVICE``; ``state_dict`` gives starting weights
-    (else MODEL.WEIGHTS, a JAX package ``.ckpt`` or this package's
-    ``.pth``; else weights from the seed)."""
+    (else MODEL.WEIGHTS: a Caffe2 ``.pkl``, a detectron2 or this package's
+    ``.pth`` or a JAX package ``.ckpt``, over weights from the seed)."""
 
     def __init__(self, cfg, data: Optional[Iterable] = None, device=None,
                  state_dict=None):
@@ -126,8 +130,6 @@ class Trainer:
         self.seed = default_setup(cfg)
         model = build_model(cfg)
         init_weights(model, torch.Generator().manual_seed(self.seed))
-        if state_dict is None and cfg.MODEL.WEIGHTS:
-            state_dict = read_weights(cfg.MODEL.WEIGHTS)
         if state_dict is not None:
             # keys the weights lack (a predictor removed by surgery) keep
             # their seeded values
@@ -135,6 +137,10 @@ class Trainer:
                 state_dict, strict=False).unexpected_keys
             if unexpected:
                 raise ValueError(f"weights with no parameter: {unexpected}")
+        else:
+            # MODEL.WEIGHTS of any format; tensors it lacks, or holds in
+            # another shape, keep their seeded values
+            maybe_load_reference_weights(cfg.MODEL.WEIGHTS, model)
         self.model = model.to(self.device).train()
         self.optimizer = build_optimizer(cfg, self.model)
         self.scheduler = build_scheduler(cfg, self.optimizer)

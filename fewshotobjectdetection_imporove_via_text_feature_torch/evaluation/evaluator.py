@@ -8,13 +8,16 @@ copies on their own stream from page-locked memory). The model runs under
 copy per field, and the padded tail of a bucket group
 (``meta['valid_count']``) is dropped before the evaluator sees it. Timing
 follows the reference: the first ``NUM_WARMUP`` batches are left out of the
-per-image compute time, which is logged and kept, with the image count and
-the wall time, in ``inference_on_dataset.last_timing``.
+per-image compute time, which is logged and kept, with the image count,
+the wall time and PCB's time, in ``inference_on_dataset.last_timing``.
 
-Not here: PCB rescoring (ROADMAP.md Queue 1 item 11), the painting
-meta-archs that see test-time GT (item 10) and multi-device evaluation
-(item 15). The flagship is a plain arch: it never sees GT, so
-``TEST.NO_GT_EVAL`` changes nothing for it.
+With ``pcb`` (a ``PrototypicalCalibrationBlock``), each batch's host
+detections, in original-image coordinates, are rescored with the batch's
+``file_names`` before the evaluator sees them.
+
+Not here: the painting meta-archs that see test-time GT (ROADMAP.md Queue 1
+item 10) and multi-device evaluation (item 15). The flagship is a plain
+arch: it never sees GT, so ``TEST.NO_GT_EVAL`` changes nothing for it.
 """
 
 from __future__ import annotations
@@ -46,15 +49,11 @@ class DatasetEvaluator:
 def inference_on_dataset(model, data_loader, evaluator: Optional[
         DatasetEvaluator], pcb=None, no_gt: bool = False):
     """Run ``model.forward_inference`` over the loader's batches on the
-    model's device and return ``evaluator.evaluate()`` ({} without one).
-    ``no_gt`` is accepted for the JAX package's signature: the flagship
-    never sees GT. Logs the image count, the per-image compute time
-    without the warm-up batches, and the per-image wall time."""
-    if pcb is not None:
-        raise NotImplementedError(
-            "PCB rescoring is not ported to the PyTorch package yet: "
-            "ROADMAP.md Queue 1 item 11 (PCB)"
-        )
+    model's device, rescore with ``pcb`` when given, and return
+    ``evaluator.evaluate()`` ({} without one). ``no_gt`` is accepted for
+    the JAX package's signature: the flagship never sees GT. Logs the image
+    count, the per-image compute time without the warm-up batches, and the
+    per-image wall time."""
     del no_gt  # a plain arch: no test-time GT to withhold
     if evaluator is not None:
         evaluator.reset()
@@ -63,6 +62,7 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
     model.eval()
     start = time.perf_counter()
     steady_start, steady_images, num_images = None, 0, 0
+    pcb_s = 0.0
     batches = device_batches(data_loader, device)
     try:
         with torch.inference_mode():
@@ -72,6 +72,16 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
                 fields = [t[:n].cpu().numpy() for t in
                           (det.boxes, det.scores, det.classes, det.valid)]
                 ids = meta.get("image_ids", list(range(n)))[:n]
+                if pcb is not None:
+                    t0 = time.perf_counter()
+                    names = meta.get("file_names")
+                    det_np = pcb.execute_calibration(
+                        ids, dict(zip(("boxes", "scores", "classes", "valid"),
+                                      fields)),
+                        file_names=None if names is None else names[:n])
+                    fields = [det_np[k] for k in
+                              ("boxes", "scores", "classes", "valid")]
+                    pcb_s += time.perf_counter() - t0
                 num_images += n
                 if steady_start is not None:
                     steady_images += n
@@ -87,7 +97,8 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
               if steady_images else wall / max(num_images, 1))
     inference_on_dataset.last_timing = dict(
         images=num_images, timed_images=steady_images,
-        s_per_image=steady, wall_s_per_image=wall / max(num_images, 1))
+        s_per_image=steady, wall_s_per_image=wall / max(num_images, 1),
+        pcb_s=pcb_s)
     logger.info(
         "Inference done: %d images, %.4f s/img compute (warmup-skipped), "
         "%.4f s/img wall", num_images, steady, wall / max(num_images, 1),
@@ -98,5 +109,5 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
 
 
 # the latest run's {images, timed_images, s_per_image (warm-up left out),
-# wall_s_per_image}
+# wall_s_per_image, pcb_s (seconds in execute_calibration)}
 inference_on_dataset.last_timing = None

@@ -6,8 +6,9 @@ repository's ``tools/model_surgery.py`` (remove / randinit / reset), over
         --dataset voc --method randinit \\
         --src-path out/base1/model_final.pth --save-dir out/base1
 
-The source is a checkpoint of this package (``.pth``) or a JAX package
-pickle checkpoint (``.ckpt``); the result is a ``.pth``
+The source is a checkpoint of this package or of detectron2 (``.pth``,
+tensors or numpy arrays under ``"model"`` or bare) or a JAX package pickle
+checkpoint (``.ckpt``); the result is a ``.pth``
 (``<save-dir>/<tar-name>_surgery.pth`` for randinit, ``_remove`` for
 remove, ``_optimizer`` for reset) holding the model weights and iteration 0.
 """
@@ -21,6 +22,7 @@ import torch
 
 from ..checkpoint import (
     load_jax_checkpoint,
+    load_torch_state,
     reset_optimizer,
     surgery_randinit,
     surgery_remove,
@@ -28,13 +30,14 @@ from ..checkpoint import (
 
 
 def load_state(path: str):
-    """A training checkpoint as {"model": state dict, ...}."""
+    """A checkpoint's model weights as {"model": state dict, ...}."""
     if path.endswith(".ckpt"):
         return {"model": load_jax_checkpoint(path), "iteration": 0}
     if path.endswith(".pth"):
-        return torch.load(path, map_location="cpu", weights_only=True)
-    raise SystemExit(f"{path}: surgery reads a .pth of this package or a "
-                     "JAX package .ckpt")
+        return {"model": {k: torch.as_tensor(v) for k, v in
+                          load_torch_state(path).items()}, "iteration": 0}
+    raise SystemExit(f"{path}: surgery reads a .pth (this package's or "
+                     "detectron2's) or a JAX package .ckpt")
 
 
 def main(argv=None):

@@ -1,16 +1,15 @@
 #!/usr/bin/env bash
 # The few-shot workflow on the PyTorch package, step by step as
-# tools/smoke_workflow.sh runs it on the JAX package: synthetic VOC -> base
-# training -> randinit surgery (15 -> 20 classes) -> per-seed config ->
-# gfsod 1-shot fine-tune and evaluation -> extract_results, with a tiny
-# model.
+# tools/smoke_workflow.sh runs it on the JAX package: synthetic VOC and
+# weights -> base training from a Caffe2 ImageNet .pkl (MODEL.WEIGHTS) ->
+# randinit surgery (15 -> 20 classes) -> per-seed config -> gfsod 1-shot
+# fine-tune and evaluation with PCB rescoring (a torchvision R-101 .pth as
+# TEST.PCB_MODELPATH) -> extract_results, with a tiny detector.
 #
 #   bash fewshotobjectdetection_imporove_via_text_feature_torch/tools/smoke_workflow.sh [SAVE_DIR] [DEVICE]
 #
-# DEVICE is cpu (the default) or cuda. PCB rescoring is not ported yet
-# (ROADMAP.md Queue 1 item 11), so the fine-tune runs with
-# TEST.PCB_ENABLE False. The per-seed config is written into a copy of
-# configs/ under SAVE_DIR; nothing is written under configs/.
+# DEVICE is cpu (the default) or cuda. The per-seed config is written into a
+# copy of configs/ under SAVE_DIR; nothing is written under configs/.
 set -e -o pipefail
 cd "$(dirname "$0")/../.."
 
@@ -23,8 +22,13 @@ mkdir -p "${SAVE_DIR}"
 DATA_ROOT=${SAVE_DIR}/datasets
 export FSODTF_DATASETS=${DATA_ROOT}
 python -m ${PORT}.tools.make_synthetic_voc --root "${DATA_ROOT}" --shots 1 --seed 0
+# the ImageNet weights: a Caffe2 pickle of the tiny detector's ResNet and
+# the torchvision R-101 that PCB runs
+python -m ${PORT}.tools.make_synthetic_weights --c2 "${SAVE_DIR}/R-14.pkl" \
+    --depth 14 --stem-out-channels 8 --res2-out-channels 16 \
+    --width-per-group 4 --torchvision "${SAVE_DIR}/resnet101.pth"
 
-TINY_OPTS="MODEL.DEVICE ${DEVICE}
+TINY_OPTS="MODEL.DEVICE ${DEVICE} TEST.PCB_MODELPATH ${SAVE_DIR}/resnet101.pth
 MODEL.RESNETS.DEPTH 14 MODEL.RESNETS.STEM_OUT_CHANNELS 8
 MODEL.RESNETS.RES2_OUT_CHANNELS 16 MODEL.RESNETS.WIDTH_PER_GROUP 4
 MODEL.BACKBONE.FREEZE_AT 0
@@ -41,7 +45,7 @@ SOLVER.CHECKPOINT_PERIOD 0 SEED 5"
 
 echo "=== 1. base training (15 classes) ==="
 python -m ${PORT}.cli --config-file configs/voc/defrcn_det_r101_base1.yaml \
-    --opts MODEL.WEIGHTS "" SOLVER.MAX_ITER 5 SOLVER.STEPS "(4,)" \
+    --opts MODEL.WEIGHTS "${SAVE_DIR}/R-14.pkl" SOLVER.MAX_ITER 5 SOLVER.STEPS "(4,)" \
     OUTPUT_DIR "${SAVE_DIR}/base1" ${TINY_OPTS}
 
 echo "=== 2. checkpoint surgery (15 -> 20 classes) ==="
@@ -59,7 +63,8 @@ OUT=${SAVE_DIR}/1shot_seed0
 python -m ${PORT}.cli --config-file "${CONFIG}" \
     --opts MODEL.WEIGHTS "${SAVE_DIR}/base1/model_reset_surgery.pth" \
     SOLVER.MAX_ITER 5 SOLVER.STEPS "(4,)" OUTPUT_DIR "${OUT}" \
-    TEST.PCB_ENABLE False ${TINY_OPTS} 2>&1 | tee "${OUT}.log"
+    ${TINY_OPTS} 2>&1 | tee "${OUT}.log"
+grep -q "PCB: built 20 class prototypes" "${OUT}.log"
 # the CLI writes OUT/log.txt, ending in the copypaste lines
 test -f "${OUT}/log.txt"
 

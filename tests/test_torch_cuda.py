@@ -130,6 +130,25 @@ def test_roi_align_kernel_matches_plain(card, dtype, tol, p, stride,
     torch.testing.assert_close(got.float(), ref.float(), **tol)
 
 
+def test_roi_align_kernel_matches_plain_at_the_pcb_shape(card):
+    """PCB's call: float32 res5 maps of 2048 channels at 1/32 for a group of
+    images padded to 512x384 (NCHW, as the network returns them), whole
+    boxes in original coordinates, P 1, adaptive sampling."""
+    rng = np.random.RandomState(11)
+    feat = torch.from_numpy(
+        rng.randn(4, 2048, 384 // 32, 512 // 32).astype(np.float32)).to(card)
+    xy = rng.uniform(0, 450, (4, 20, 2))
+    wh = rng.uniform(4, 300, (4, 20, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [500, 375])], axis=-1)
+    boxes = torch.from_numpy(boxes.astype(np.float32)).to(card)
+    before = roi_align_cuda.launches
+    got = roi_align(feat, boxes, 1, 1 / 32.0, 0)
+    assert roi_align_cuda.launches == before + 1
+    ref = roi_align_plain(feat, boxes, 1, 1 / 32.0, 0)
+    assert got.shape == ref.shape == (4, 20, 2048, 1, 1)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype,tol", ROI_TOLS)
 @pytest.mark.parametrize("layout", ["channels_last", "nchw"])
 @pytest.mark.parametrize("name", ROI_CASES)

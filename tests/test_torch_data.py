@@ -175,10 +175,22 @@ def test_registry_dicts_equal_the_jax_package(voc, name, dirname, split,
 
 
 def test_registry_refuses_coco_and_can_move_its_root(voc, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    """The COCO names load (a synthetic COCO under another root; the name
+    is kept from when COCO was refused), and the names follow the root."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_coco import (
+        make_coco,
+    )
+
+    with pytest.raises(FileNotFoundError):  # no COCO under the VOC root
         DatasetCatalog.get("coco14_trainval_all")
+    make_coco(str(tmp_path), train_images=4, test_images=2,
+              image_size=(64, 48))
     register_all(str(tmp_path))  # another root: the names follow it
     try:
+        records = DatasetCatalog.get("coco14_trainval_all")
+        assert [r["image_id"] for r in records] == [1, 2, 3, 4]
+        assert all(len(r["annotations"]) == 3 for r in records)
+        assert len(DatasetCatalog.get("coco14_test_base")) == 2
         with pytest.raises(FileNotFoundError):
             DatasetCatalog.get("voc_2007_trainval_base1")
     finally:

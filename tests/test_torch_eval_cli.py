@@ -64,6 +64,7 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
 )
 from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
     build_detection_test_loader,
+    get_detection_dataset_dicts,
     register_all,
 )
 from fewshotobjectdetection_imporove_via_text_feature_torch.engine.hooks import (
@@ -250,8 +251,29 @@ def test_inference_on_dataset_matches_the_jax_package(voc):
             ev.process_detections(*batch)
         ap[name] = ev.evaluate()["bbox"]
     assert abs(ap["ours"]["AP50"] - ap["ref"]["AP50"]) <= 1e-6
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        inference_on_dataset(model, [], ours, pcb=object())
+
+    # with a PCB: each batch's host detections (original coordinates) and
+    # its file names go through execute_calibration before the evaluator
+    class _HalvingPCB:
+        calls = []
+
+        def execute_calibration(self, image_ids, det, file_names=None):
+            self.calls.append((list(image_ids), list(file_names)))
+            det["scores"] = det["scores"] * 0.5
+            return det
+
+    pcb, rescored = _HalvingPCB(), _Recorder()
+    inference_on_dataset(model, build_detection_test_loader(
+        cfg, TEST_SET, batch_size=4), rescored, pcb=pcb)
+    files = {r["image_id"]: r["file_name"]
+             for r in get_detection_dataset_dicts(TEST_SET, False)}
+    assert [ids for ids, _ in pcb.calls] == [b[0] for b in ours.batches]
+    assert [names for _, names in pcb.calls] == [
+        [files[i] for i in b[0]] for b in ours.batches]
+    for a, b in zip(rescored.batches, ours.batches):
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_array_equal(a[2], b[2] * 0.5)
+    assert inference_on_dataset.last_timing["pcb_s"] > 0
 
 
 def test_inference_on_dataset_keeps_its_timing(voc):
@@ -270,6 +292,7 @@ def test_inference_on_dataset_keeps_its_timing(voc):
     t = inference_on_dataset.last_timing
     assert (t["images"], t["timed_images"]) == (6, 6 - NUM_WARMUP)
     assert 0 < t["s_per_image"] and 0 < t["wall_s_per_image"]
+    assert t["pcb_s"] == 0.0  # no PCB
 
 
 def _run_cli(argv):
@@ -326,7 +349,8 @@ def test_cli_trains_evaluates_resumes_and_keeps_the_log_contract(
     (["--num-machines", "2"], "Queue 1 item 15"),
     (["--num-gpus", "2"], "Queue 1 item 15"),
     (["--opts", "TPU.SPATIAL_PARTITION", "2"], "Queue 1 item 15"),
-    (["--opts", "TEST.PCB_ENABLE", "True"], "Queue 1 item 11"),
+    (["--opts", "TEST.PCB_ENABLE", "True", "TEST.PCB_MODELTYPE", "vgg"],
+     "PCB_MODELTYPE"),
     (["--opts", "TPU.DEVICE_PREPROCESS", "True"], "Queue 1 item 14"),
 ])
 def test_cli_refuses_what_is_not_ported(voc, tmp_path, monkeypatch,

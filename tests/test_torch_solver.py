@@ -408,8 +408,8 @@ def test_training_options_not_ported_raise_with_their_roadmap_item(tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             Trainer(cfg, _data(), device="cpu")
     cfg = _tiny_cfg(tmp_path, 1)
-    cfg.MODEL.WEIGHTS = "R-101.pkl"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    cfg.MODEL.WEIGHTS = str(tmp_path / "R-101.pkl")  # missing: refused
+    with pytest.raises(FileNotFoundError, match="R-101.pkl"):
         Trainer(cfg, _data(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
