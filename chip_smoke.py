@@ -5,7 +5,8 @@ with its hand-written CUDA kernels, and check what comes out.
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile DIR  # also profile one bf16 batch of
                                          # 8 and one bf16 train step of
-                                         # 16; the tables go to DIR
+                                         # 16, flagship and text; the
+                                         # tables go to DIR
 
 Phases, each of which fails the run on error:
   1. the card's name and power limit (nvidia-smi);
@@ -87,15 +88,41 @@ Phases, each of which fails the run on error:
      images/s, launches
      against their expected counts; the kernels again on one COCO
      evaluation batch's own inputs (the final NMS site at 80 classes, the
-     res5 and PCB ROIAlign calls) and its PCB scores against plain_ops().
+     res5 and PCB ROIAlign calls) and its PCB scores against plain_ops();
+ 11. the text families at full width on the same config, with the text
+     head of run_text_train_student.sh (TextRes5ROIHeads, DISTILLATE, KL,
+     L2, KL_TEMP 5; synthetic GloVe-300 vectors): (a) float32 batch 2, one
+     step through the kernels against one through the plain ops
+     (proposals and sampled ROIs equal, every loss within 1e-5 relative,
+     the teacher's and the distillation's included, four gradients within
+     1e-4 of their largest values); (b) bf16 at IMS_PER_BATCH 16, 2
+     warm-up and 5 timed steps (CUDA events), median beside phase 8 (b)'s,
+     peak memory, launches per step NMS 1 / ROIAlign 2 / backward 2; the
+     cross-ROI attention timed alone at the step's 8192 ROIs; with
+     --profile one profiled text step, its device time split into the
+     operations over the 8193 keys (QK^T, softmax, AV), the rest of the
+     text head (the difference from phase 8 (b)'s profiled step) and the
+     kernels; (e) the kernels again on one more text step's own inputs;
+     (c) DefaultPredictor on the text config (the student): float32
+     against the plain ops, bf16 timed, NMS twice a forward; (d) the
+     meta-archs that paint GT (Semantic, Distillated with the cross-output
+     head, TextAtt with pixel attention over 50x84 cells an image): one
+     bf16 step at batch 16 after a warm-up and one GT-fed forward_inference
+     of 8, against the same forward without GT (different where GT is
+     painted, equal for Distillated), launches as expected; (f) the text
+     recipe through the CLI on phase 9's synthetic VOC: teacher base
+     training (4 steps), randinit 15 -> 20, reset_student, the gfsod 1-shot
+     config with the student flags (2 steps) and the evaluation of the 800
+     test images at 32 with PCB (EVAL_THRESHOLDS): bAP50/nAP50 finite,
+     images/s, launches as expected.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b), 9 and 10, by path, PCB's apart, and launches
-per train step),
+main paths of phases 5, 8 (b), 9, 10 and 11, by path, PCB's apart, and
+launches per train step),
 then the card's name and power limit, then as the last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result, when CUDA is absent or the package is missing.
@@ -587,7 +614,11 @@ def _reset_counts():
                     "roi_align_v2_bwd": roi_align_bwd_cuda.launches}
 
 
-def phase_predictor(profile_dir=None):
+def phase_predictor(profile_dir=None, opts=(), label="predictor"):
+    """Phase 5 on the config with ``opts`` (phase 11: the text head, whose
+    serving path runs its student). Returns the bf16 run's launches, the
+    kernel calls of one more predict_batch(8), the ROI chunks a forward
+    and the bf16 times."""
     import torch
     from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
         get_cfg,
@@ -601,6 +632,7 @@ def phase_predictor(profile_dir=None):
 
     cfg = get_cfg()
     cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(list(opts))
     cfg.MODEL.WEIGHTS = ""  # no checkpoint in the repo: seeded weights
     ncls = cfg.MODEL.ROI_HEADS.NUM_CLASSES
     images = _synthetic_images(1, 11)
@@ -609,7 +641,7 @@ def phase_predictor(profile_dir=None):
     chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // cfg.TPU.ROI_CHUNK)
     want = {"greedy_nms": 2 * forwards,  # RPN proposals + final detections
             "roi_align_v2_fwd": chunks * forwards, "roi_align_v2_bwd": 0}
-    log(f"predictor: {os.path.relpath(CONFIG, ROOT)}, depth "
+    log(f"{label}: {os.path.relpath(CONFIG, ROOT)} {list(opts)}, depth "
         f"{cfg.MODEL.RESNETS.DEPTH}, {ncls} classes, images 800x1333 -> "
         f"bucket {tuple(cfg.TPU.IMAGE_BUCKETS[-1])}")
 
@@ -628,14 +660,15 @@ def phase_predictor(profile_dir=None):
     _check_outputs(got, images, ncls)
     fracs = [min(_match_fraction(g, r), _match_fraction(r, g))
              for g, r in zip(got, ref)]
-    log(f"float32 kernels vs plain ops: detections per image "
+    log(f"{label} float32 kernels vs plain ops: detections per image "
         f"{[len(o['boxes']) for o in got]} vs "
         f"{[len(o['boxes']) for o in ref]}; matched share (worst way) "
         f"{[round(f, 4) for f in fracs]}; launches {counts32}")
     if min(fracs) < MATCH_FRACTION:
-        raise PhaseError(f"float32 detections differ: matched {fracs}")
+        raise PhaseError(f"{label} float32 detections differ: matched "
+                         f"{fracs}")
     if counts32 != want:
-        raise PhaseError(f"launches {counts32}, expected {want}")
+        raise PhaseError(f"{label}: launches {counts32}, expected {want}")
     del pred
     torch.cuda.empty_cache()
 
@@ -648,15 +681,16 @@ def phase_predictor(profile_dir=None):
     counts = read()
     _check_outputs(got, images, ncls)
     if counts != want:
-        raise PhaseError(f"launches {counts}, expected {want}")
-    log(f"bfloat16 main path: batch-1 requests "
+        raise PhaseError(f"{label}: launches {counts}, expected {want}")
+    log(f"{label} bfloat16 main path: batch-1 requests "
         f"{[round(s * 1e3, 2) for s in secs]} ms, predict_batch(8) "
         f"{bsec * 1e3:.2f} ms ({8 / bsec:.2f} images/s); detections per "
         f"image {[len(o['boxes']) for o in got]}; launches {counts}")
     if profile_dir:
         phase_profile(pred, batch, profile_dir)
     return counts, capture_kernel_inputs(
-        lambda: pred.predict_batch(batch)), chunks
+        lambda: pred.predict_batch(batch)), chunks, {
+            "request_ms": [x * 1e3 for x in secs], "batch8_ms": bsec * 1e3}
 
 
 def capture_kernel_inputs(fn):
@@ -940,13 +974,14 @@ def train_batches(seed, n_batches, batch, max_gt=100, num_classes=15,
     return out
 
 
-def _train_cfg(out_dir, dtype, batch, max_iter):
+def _train_cfg(out_dir, dtype, batch, max_iter, opts=()):
     from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
         get_cfg,
     )
 
     cfg = get_cfg()
     cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(list(opts))
     cfg.MODEL.WEIGHTS = ""  # no checkpoint in the repo: seeded weights
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.SOLVER.IMS_PER_BATCH = batch
@@ -981,9 +1016,10 @@ def _recording_sampler():
                                     fn)
 
 
-def phase_train_f32(tmp):
+def phase_train_f32(tmp, opts=(), grads=TRAIN_GRADS, label="train f32"):
     """(a) float32, TF32 off, batch 2: one forward/backward through the
-    kernels and one through the plain ops, with the same generators."""
+    kernels and one through the plain ops, with the same generators;
+    ``opts`` on top of the config (phase 11: the text head)."""
     import torch
     from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
         Trainer,
@@ -996,7 +1032,7 @@ def phase_train_f32(tmp):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    cfg = _train_cfg(os.path.join(tmp, "f32"), "float32", 2, 1)
+    cfg = _train_cfg(os.path.join(tmp, "f32"), "float32", 2, 1, opts)
     (images, gt), = train_batches(11, 1, 2)
     trainer = Trainer(cfg, [(images, gt)])
     model = trainer.model
@@ -1009,7 +1045,7 @@ def phase_train_f32(tmp):
         sum(v for k, v in losses.items()
             if not k.startswith("metric/")).backward()
         named = dict(model.named_parameters())
-        return losses, {n: named[n].grad.clone() for n in TRAIN_GRADS}
+        return losses, {n: named[n].grad.clone() for n in grads}
 
     records, restore = _recording_sampler()
     try:
@@ -1024,32 +1060,34 @@ def phase_train_f32(tmp):
     (kp, kv, ks, ksv), (pp, pv, ps, psv) = records
     if not (torch.equal(kp, pp) and torch.equal(kv, pv)
             and torch.equal(ks, ps) and torch.equal(ksv, psv)):
-        raise PhaseError("train f32: proposals or sampled ROIs differ "
+        raise PhaseError(f"{label}: proposals or sampled ROIs differ "
                          "between the kernels and the plain ops")
     worst = {}
     for k in ref:
         a, b = float(got[k].detach()), float(ref[k].detach())
         worst[k] = abs(a - b) / max(abs(b), 1e-30)
         if not k.startswith("metric/") and worst[k] > TRAIN_LOSS_RTOL:
-            raise PhaseError(f"train f32: {k} {a} vs plain {b}")
+            raise PhaseError(f"{label}: {k} {a} vs plain {b}")
     grad_err = {}
-    for n in TRAIN_GRADS:
+    for n in grads:
         scale = float(ref_g[n].abs().max())
-        grad_err[n] = float((got_g[n] - ref_g[n]).abs().max()) / scale
+        grad_err[n] = float((got_g[n] - ref_g[n]).abs().max()) / max(
+            scale, 1e-30)
         if not scale > 0 or grad_err[n] > TRAIN_GRAD_TOL:
-            raise PhaseError(f"train f32: gradient of {n} off by "
+            raise PhaseError(f"{label}: gradient of {n} off by "
                              f"{grad_err[n]:.3g} of its max {scale:.3g}")
     losses = {k: round(float(v.detach()), 6) for k, v in got.items()}
-    log(f"train float32 batch 2, kernels vs plain ops: proposals "
+    log(f"{label}, batch 2, kernels vs plain ops: proposals "
         f"({int(kv.sum())} valid) and sampled ROIs ({int(ksv.sum())} valid)"
         f" equal; losses {losses}; relative loss differences "
         f"{_fmt(worst)}; gradient differences / max {_fmt(grad_err)}; "
         f"launches {counts}")
     if counts != {"greedy_nms": 1, "roi_align_v2_fwd": 2,
                   "roi_align_v2_bwd": 2}:
-        raise PhaseError(f"train f32: launches {counts}")
+        raise PhaseError(f"{label}: launches {counts}")
     del trainer, model
     torch.cuda.empty_cache()
+    return got
 
 
 def _step_end_hook(trainer):
@@ -1100,7 +1138,9 @@ def _not_finite(losses):
             if not all(math.isfinite(float(v)) for v in d.values())]
 
 
-def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
+def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None, opts=(),
+                     label="train bfloat16", profile_tag="bf16_train_step",
+                     key_dim=None):
     """(b) bfloat16 at IMS_PER_BATCH: Trainer.train over warm-up and timed
     steps, each ended by a CUDA event and one synchronize after the run;
     the launch counters span the whole run. With ``profile_dir``, one more
@@ -1121,7 +1161,8 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
     base.merge_from_file(CONFIG)
     batch = base.SOLVER.IMS_PER_BATCH
     steps = warmup + timed
-    cfg = _train_cfg(os.path.join(tmp, "bf16"), "bfloat16", batch, steps)
+    cfg = _train_cfg(os.path.join(tmp, "bf16"), "bfloat16", batch, steps,
+                     opts)
     data = train_batches(12, 2, batch)
     trainer = Trainer(cfg, data)
     hook, ends, losses = _step_end_hook(trainer)
@@ -1139,16 +1180,16 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
     peak = torch.cuda.max_memory_allocated()
     bad = _not_finite(losses)
     if bad:
-        raise PhaseError(f"train bf16: non-finite losses at steps {bad}")
+        raise PhaseError(f"{label}: non-finite losses at steps {bad}")
     want = {"greedy_nms": steps, "roi_align_v2_fwd": 2 * steps,
             "roi_align_v2_bwd": 2 * steps}
     if counts != want:
-        raise PhaseError(f"train bf16: launches {counts}, expected {want}")
+        raise PhaseError(f"{label}: launches {counts}, expected {want}")
     step_ms = _spacings(start, ends)[warmup:]
     med = statistics.median(step_ms)
     window = ends[warmup - 1].elapsed_time(ends[-1]) / timed
     last = {k: round(float(v), 5) for k, v in trainer.last_losses.items()}
-    log(f"train bfloat16 batch {batch} at 800x1344, R-101, resident "
+    log(f"{label} batch {batch} at 800x1344, R-101, resident "
         f"batches: {steps} steps in {wall:.2f} s (model_final saved); step "
         f"ms (CUDA events at step ends, no synchronize between steps) "
         f"median {med:.2f} over steps {warmup}-{steps - 1} "
@@ -1158,13 +1199,16 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None):
         f"{counts} = per step "
         f"{({k: v // steps for k, v in counts.items()})}; last losses {last}")
     images, gt = (t.to("cuda") for t in data[0])
+    profiled = None
     if profile_dir:
-        profile_call(f"bf16 train step, batch {batch}",
-                     lambda: trainer.train_step(images, gt, steps),
-                     profile_dir, f"profile_bf16_train_step_{batch}.txt")
+        profiled = profile_call(
+            f"{label} step, batch {batch}",
+            lambda: trainer.train_step(images, gt, steps), profile_dir,
+            f"profile_{profile_tag}_{batch}.txt", key_dim=key_dim)
     return ({**{k: v // steps for k, v in counts.items()},
              "median_ms": med, "window_ms": window,
-             "peak_gib": peak / 2**30}, counts,
+             "peak_gib": peak / 2**30, "profile": profiled,
+             "last_losses": sorted(trainer.last_losses)}, counts,
             lambda: trainer.train_step(images, gt, steps + 1))
 
 
@@ -1552,7 +1596,8 @@ def phase_workflow(tmp, tv_pth, profile_dir=None):
         fed_step_ms=statistics.median(all_steady), fed_step_ms_by_bucket=med,
         fed_window_ms=window, resident_bucket=bucket, resident_ms=resident,
         contended_ms=contended, eval_batch=cli.EVAL_BATCH_SIZE,
-        eval_images_per_s=1 / timing["s_per_image"], pcb=pcb_nums)
+        eval_images_per_s=1 / timing["s_per_image"], pcb=pcb_nums,
+        datasets=root, ft_config=ft_config)
 
 
 def _plain_copies(calls):
@@ -1918,6 +1963,325 @@ def _run_script(name, *argv):
         sys.argv = saved
 
 
+# ---------------------------------------------------------------- phase 11
+# the text head of run_text_train_student.sh: a text-guided teacher whose
+# LVAttention runs across every ROI of the batch, and the student distilled
+# from it (feature L2 and KL at temperature 5)
+TEXT_OPTS = ("MODEL.ROI_HEADS.NAME", "TextRes5ROIHeads",
+             "MODEL.ROI_HEADS.TEACHER_TRAINING", "False",
+             "MODEL.ROI_HEADS.STUDENT_TRAINING", "True",
+             "MODEL.ROI_HEADS.DISTILLATE", "True",
+             "MODEL.ROI_HEADS.KL", "True", "MODEL.ROI_HEADS.L2", "True",
+             "MODEL.ROI_HEADS.KL_TEMP", "5")
+# the teacher's base training (run_text_train_teacher.sh)
+TEACHER_OPTS = ("MODEL.ROI_HEADS.NAME", "TextRes5ROIHeads",
+                "MODEL.ROI_HEADS.TEACHER_TRAINING", "True",
+                "MODEL.ROI_HEADS.STUDENT_TRAINING", "False",
+                "MODEL.ROI_HEADS.DISTILLATE", "False")
+TEXT_LOSSES = {"loss_cls_t", "loss_box_reg_t", "loss_kl",
+               "loss_student_feat"}
+TEXT_GRADS = ("backbone.res4.0.conv3.weight", "roi_heads.res5.0.conv3.weight",
+              "roi_heads.attention.attention.w_q.weight",
+              "roi_heads.stu_box_predictor.cls_score.weight")
+# the meta-archs that paint GT into the features, each with the head its
+# run script gives it (run_voc_distillate_rpn.sh for Distillated)
+PAINTING = (
+    ("GeneralizedSemanticRCNN", ()),
+    ("GeneralizedDistillatedRCNN",
+     ("MODEL.ROI_HEADS.NAME", "SematicRes5ROIHeadsCrossOutput",
+      "MODEL.ROI_HEADS.OUTPUT_LAYER", "FastRCNNAttentionOutputLayers")),
+    ("GeneralizedTextAttRCNN", ()),
+)
+TEXT_BASE_STEPS = 4
+TEXT_FT_STEPS = 2
+
+
+def time_cross_roi_attention(n, d, reps=5):
+    """The teacher's cross-ROI attention at n ROIs of width d, forward and
+    backward, CUDA events over ``reps`` after a warm-up: the QK^T, masked
+    softmax and AV alone (``scaled_dot_product_attention`` over the n + 1
+    keys with the dummy), and the whole LVAttention module; float32, TF32
+    as the process has it. Returns ms and the QK^T/AV operation bound."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models.attention import (
+        LVAttention,
+        scaled_dot_product_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, n, d, device="cuda", generator=gen,
+                    requires_grad=True)
+    k = torch.randn(1, n + 1, d, device="cuda", generator=gen,
+                    requires_grad=True)
+    v = torch.randn(1, n + 1, d, device="cuda", generator=gen,
+                    requires_grad=True)
+    mask = torch.ones(1, n + 1, dtype=torch.bool, device="cuda")
+    mask[0, n - 64:n] = False  # a few pad rows
+
+    def sdpa():
+        out, _ = scaled_dot_product_attention(q, k, v, d ** 0.5, mask)
+        out.sum().backward()
+
+    module = LVAttention(d, torch.randn(15, 300).numpy())
+    module.init_params_(torch.Generator().manual_seed(0))
+    module.cuda()
+    feat = torch.randn(n, d, device="cuda", generator=gen,
+                       requires_grad=True)
+    labels = torch.randint(0, 16, (n,), device="cuda", generator=gen)
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+
+    def lv():
+        _, out = module(feat, labels, valid)
+        out["sim2stext"].sum().backward()
+
+    out = {}
+    for name, fn in (("sdpa_ms", sdpa), ("lv_attention_ms", lv)):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / reps
+    # QK^T and AV: 2 n (n+1) d multiply-adds each forward, twice that
+    # backward; float32 outside the tensor cores
+    flops = 3 * 2 * 2 * n * (n + 1) * d
+    out["sdpa_bound_ms"] = flops / F32_FLOPS * 1e3
+    return out
+
+
+def phase_painting_archs(tmp, batch=16, infer=8):
+    """(d) For each meta-arch that paints GT: one bf16 warm-up step and one
+    timed step at ``batch`` (launches NMS 1, ROIAlign forward 2 and backward
+    2 a step, finite losses of the first), then one GT-fed
+    forward_inference of the
+    first ``infer`` images (NMS 2, ROIAlign 4), compared with the same
+    forward without GT: it must differ where GT is painted and be equal
+    for the Distillated family, which ignores it. Returns the launches of
+    all these runs and the numbers."""
+    import math
+
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+    )
+
+    data = train_batches(13, 1, batch)
+    images, gt = (t.to("cuda") for t in data[0])
+    sub = lambda t: type(t)(*(x[:infer] for x in vars(t).values()))  # noqa
+    total, numbers = {}, {}
+    for meta, opts in PAINTING:
+        cfg = _train_cfg(os.path.join(tmp, meta), "bfloat16", batch, 2,
+                         ("MODEL.META_ARCHITECTURE", meta, *opts))
+        trainer = Trainer(cfg, data)
+        model = trainer.model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        read = _reset_counts()
+        losses = trainer.train_step(images, gt, 0)
+        ms = _timed_steps(lambda k: trainer.train_step(images, gt, 1 + k), 1)
+        step_counts = read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if step_counts != {"greedy_nms": 2, "roi_align_v2_fwd": 4,
+                           "roi_align_v2_bwd": 4}:
+            raise PhaseError(f"{meta}: 2 train steps launched {step_counts}")
+        bad = [k for k, v in losses.items() if not math.isfinite(float(v))]
+        if bad:
+            raise PhaseError(f"{meta}: non-finite losses {bad}")
+        if meta == "GeneralizedDistillatedRCNN" and not {
+                "loss_rpn_res2", "loss_rpn_res3", "loss_rpn_res4"} <= set(
+                    losses):
+            raise PhaseError(f"{meta}: losses {sorted(losses)}")
+        model.eval()
+        torch.backends.cudnn.deterministic = True
+        read = _reset_counts()
+        with torch.inference_mode():
+            with_gt = model.forward_inference(sub(images), sub(gt))
+            without = model.forward_inference(sub(images), None)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        infer_counts = read()
+        if infer_counts != {"greedy_nms": 4, "roi_align_v2_fwd": 8,
+                            "roi_align_v2_bwd": 0}:
+            raise PhaseError(f"{meta}: 2 forwards launched {infer_counts}")
+        for det in (with_gt, without):
+            if not (torch.isfinite(det.boxes).all()
+                    and torch.isfinite(det.scores).all()):
+                raise PhaseError(f"{meta}: non-finite detections")
+        same = torch.equal(with_gt.scores, without.scores)
+        if same != (model.eval_gt_role == "none"):
+            raise PhaseError(f"{meta} (eval_gt_role "
+                             f"{model.eval_gt_role}): detections with GT "
+                             f"{'equal' if same else 'differ from'} those "
+                             "without")
+        for k in step_counts:
+            total[k] = total.get(k, 0) + step_counts[k] + infer_counts[k]
+        numbers[meta] = {"step_ms": ms[0], "peak_gib": peak}
+        log(f"{meta} ({cfg.MODEL.ROI_HEADS.NAME}, eval_gt_role "
+            f"{model.eval_gt_role}): bf16 batch {batch} step {ms[0]:.2f} ms "
+            f"(CUDA events, after a warm-up step), peak {peak:.2f} GiB, "
+            f"launches over the 2 steps {step_counts}; warm-up losses "
+            f"{_fmt(losses)}; GT-fed forward_inference of {infer} and the "
+            f"same without GT: launches {infer_counts}, valid detections "
+            f"{int(with_gt.valid.sum())} and {int(without.valid.sum())}, "
+            f"{'equal' if same else 'different'} scores")
+        del trainer, model
+        torch.cuda.empty_cache()
+    return total, numbers
+
+
+def phase_text_workflow(tmp, datasets, ft_config, tv_pth):
+    """(f) The text recipe through the CLI on phase 9's synthetic VOC:
+    teacher base training (DISTILLATE False), randinit 15 -> 20 and
+    reset_student surgery, the gfsod 1-shot seed-0 config with the student
+    flags (fine-tune), then the evaluation of the test set at the CLI's
+    batch with PCB (EVAL_THRESHOLDS). Returns the launches of both CLI runs
+    and the numbers."""
+    import math
+
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation import (
+        inference_on_dataset,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        model_surgery,
+    )
+
+    os.environ["FSODTF_DATASETS"] = datasets
+    base_out = os.path.join(tmp, "teacher_base")
+    t0 = time.perf_counter()
+    read = _reset_counts()
+    cli.main(_workflow_args(CONFIG, base_out, "SOLVER.MAX_ITER",
+                            str(TEXT_BASE_STEPS), "DATASETS.TEST", "()",
+                            *TEACHER_OPTS))
+    base_counts = read()
+    cfg = get_cfg()
+    cfg.merge_from_file(CONFIG)
+    step_chunks = -(-cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+                    // cfg.TPU.ROI_CHUNK)
+    want = {"greedy_nms": TEXT_BASE_STEPS,
+            "roi_align_v2_fwd": step_chunks * TEXT_BASE_STEPS,
+            "roi_align_v2_bwd": step_chunks * TEXT_BASE_STEPS}
+    if base_counts != want:
+        raise PhaseError(f"text teacher training: launches {base_counts}, "
+                         f"expected {want}")
+    base_s = time.perf_counter() - t0
+    wide = model_surgery.main([
+        "--dataset", "voc", "--method", "randinit", "--src-path",
+        os.path.join(base_out, "model_final.pth"), "--save-dir", base_out])
+    cold = model_surgery.main([
+        "--dataset", "voc", "--method", "reset_student", "--src-path", wide,
+        "--save-dir", base_out, "--seed", "123"])
+    ft_out = os.path.join(tmp, "1shot_seed0")
+    read = _reset_counts()
+    results = cli.main(_workflow_args(
+        ft_config, ft_out, "MODEL.WEIGHTS", cold, "SOLVER.MAX_ITER",
+        str(TEXT_FT_STEPS), "TEST.PCB_MODELPATH", tv_pth, *EVAL_THRESHOLDS,
+        *TEXT_OPTS))
+    ft_counts = read()
+    timing = inference_on_dataset.last_timing
+    bbox = results["voc_2007_test_all1"]["bbox"]
+    batches = -(-timing["images"] // cli.EVAL_BATCH_SIZE)
+    chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // cfg.TPU.ROI_CHUNK)
+    ft_cfg = get_cfg()
+    ft_cfg.merge_from_file(ft_config)
+    proto, per_batch = pcb_expected_launches(ft_cfg)
+    want = {"greedy_nms": TEXT_FT_STEPS + 2 * batches,
+            "roi_align_v2_fwd": step_chunks * TEXT_FT_STEPS
+            + chunks * batches + proto + per_batch * batches,
+            "roi_align_v2_bwd": step_chunks * TEXT_FT_STEPS}
+    if ft_counts != want:
+        raise PhaseError(f"text student fine-tune + eval: launches "
+                         f"{ft_counts}, expected {want}")
+    if timing["images"] != WORKFLOW_IMAGES or not all(
+            math.isfinite(bbox[k]) for k in ("bAP50", "nAP50")):
+        raise PhaseError(f"text workflow eval: {timing['images']} images, "
+                         f"{bbox}")
+    ips = 1 / timing["s_per_image"]
+    log(f"text workflow: teacher base training {TEXT_BASE_STEPS} steps "
+        f"({base_s:.1f} s with the model build and loader start), launches "
+        f"{base_counts}; randinit then reset_student ({os.path.basename(cold)}"
+        f"); student fine-tune {TEXT_FT_STEPS} steps and the evaluation of "
+        f"{timing['images']} test images at batch {cli.EVAL_BATCH_SIZE} with "
+        f"PCB: {ips:.2f} images/s over the last {timing['timed_images']} "
+        f"({1 / timing['wall_s_per_image']:.2f} wall), PCB "
+        f"{timing['pcb_s']:.3f} s; launches {ft_counts} as expected; bAP50 "
+        f"{bbox['bAP50']:.4f}, nAP50 {bbox['nAP50']:.4f} (seeded weights)")
+    return {k: base_counts[k] for k in base_counts}, ft_counts, {
+        "eval_images_per_s": ips}
+
+
+def phase_text(tmp, voc, tv_pth, flagship, profile_dir=None):
+    """Phase 11: the text families at full width. (a) float32 batch-2
+    text step, kernels vs plain ops; (b) timed bf16 text training at
+    IMS_PER_BATCH (and, with --profile, one profiled step split into the
+    cross-ROI attention, the rest and the kernels); (c) text serving
+    (student) in float32 against the plain ops and timed in bf16; (d) the
+    GT-painting meta-archs; (e) the kernels on a text step's own inputs;
+    (f) the text workflow through the CLI. ``flagship`` is phase 8 (b)'s
+    numbers. Returns {path: launches} and the numbers."""
+    import torch
+
+    got = phase_train_f32(tmp, TEXT_OPTS, TEXT_GRADS, "text train f32")
+    if not TEXT_LOSSES <= set(got):
+        raise PhaseError(f"text train f32: losses {sorted(got)}")
+    batch = 16
+    n = batch * 512
+    text, text_counts, next_step = phase_train_bf16(
+        tmp, warmup=2, timed=5, profile_dir=profile_dir, opts=TEXT_OPTS,
+        label="text train bfloat16", profile_tag="bf16_text_train_step",
+        key_dim=n + 1)
+    if not TEXT_LOSSES <= set(text["last_losses"]):
+        raise PhaseError(f"text train bf16: losses {text['last_losses']}")
+    phase_train_inputs(capture_kernel_inputs(next_step), "text_train_path")
+    del next_step
+    torch.cuda.empty_cache()
+    att = time_cross_roi_attention(n, 2048)
+    log(f"text train: the cross-ROI attention at {n} ROIs x 2048, float32 "
+        f"(TF32 {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'})"
+        f", forward + backward: QK^T, softmax and AV "
+        f"{att['sdpa_ms']:.2f} ms (operation bound {att['sdpa_bound_ms']:.2f}"
+        f" ms), the whole LVAttention {att['lv_attention_ms']:.2f} ms")
+    serve_counts, calls, chunks, serve = phase_predictor(
+        None, TEXT_OPTS, "text predictor")
+    del calls
+    paint_counts, paint = phase_painting_archs(tmp)
+    base_counts, ft_counts, wf = phase_text_workflow(
+        os.path.join(tmp, "text_workflow"), voc["datasets"],
+        voc["ft_config"], tv_pth)
+    split = ""
+    if text.get("profile") and flagship.get("profile"):
+        t, f = text["profile"], flagship["profile"]
+        split = (f"; profiled step device busy {t['busy_ms']:.2f} ms "
+                 f"(flagship {f['busy_ms']:.2f}): cross-ROI QK^T/softmax/AV "
+                 f"{t['key_dim_ms']:.2f} ms, the rest of the text head "
+                 f"{t['busy_ms'] - f['busy_ms'] - t['key_dim_ms']:.2f} ms "
+                 f"(the two steps' difference less the attention), the "
+                 f"kernels {t['kernels_ms']:.3f} ms")
+    log(f"text summary (phase 11 beside phase 8 (b), one card; step ms from "
+        f"CUDA events, no synchronize between steps): text train step "
+        f"median {text['median_ms']:.2f} ms against the flagship's "
+        f"{flagship['median_ms']:.2f} ms (+"
+        f"{text['median_ms'] - flagship['median_ms']:.2f}), peak "
+        f"{text['peak_gib']:.2f} GiB against {flagship['peak_gib']:.2f}"
+        f"{split}; text serving batch-1 requests "
+        f"{[round(x, 2) for x in serve['request_ms']]} ms, predict_batch(8) "
+        f"{serve['batch8_ms']:.2f} ms; painting meta-archs "
+        f"{ {k: {a: round(b, 2) for a, b in v.items()} for k, v in paint.items()} }"
+        f"; text workflow evaluation {wf['eval_images_per_s']:.2f} images/s"
+        f" with PCB")
+    return {"text_training": text_counts, "text_serving": serve_counts,
+            "text_painting_archs": paint_counts,
+            "text_workflow_teacher": base_counts,
+            "text_workflow_student_and_eval": ft_counts}, text
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
@@ -1927,9 +2291,12 @@ def _category(name: str) -> str:
         return "roi_align bwd kernel"
     if "fsod_roi_align" in n:
         return "roi_align kernel"
-    if "conv" in n or "xmma" in n or "cudnn" in n or "implicit" in n:
+    # cuDNN's convolutions (implicit GEMMs, named by pass) before cuBLAS's
+    # GEMMs, which share the xmma and gemm words
+    if any(w in n for w in ("conv", "cudnn", "implicit", "fprop", "dgrad",
+                            "wgrad")):
         return "convolution"
-    if "gemm" in n or "cutlass" in n:
+    if "gemm" in n or "cutlass" in n or "xmma" in n:
         return "matmul"
     if "sort" in n or "radix" in n:
         return "sort"
@@ -1938,20 +2305,25 @@ def _category(name: str) -> str:
     return "other"
 
 
-def profile_call(label, fn, out_dir, filename):
+def profile_call(label, fn, out_dir, filename, key_dim=None):
     """Device time by kernel of one call of ``fn``, with torch.profiler;
-    the full table goes to ``out_dir/filename``."""
+    the full table goes to ``out_dir/filename``. With ``key_dim``, also the
+    device time of the operations with an input of that size in some
+    dimension (the cross-ROI attention's N + 1 keys: its QK^T, softmax and
+    AV, forward and backward). Returns the numbers, or None when the
+    profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=key_dim is not None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
+    events = prof.events()
+    kernels = [e for e in events
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     by_cat, ours = {}, {}
     for e in kernels:
@@ -1964,7 +2336,7 @@ def profile_call(label, fn, out_dir, filename):
     if busy_ms <= 0:
         log(f"profile {label}: the profiler saw no device time; not "
             "measured")
-        return
+        return None
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, filename), "w") as f:
         f.write(prof.key_averages().table(
@@ -1978,6 +2350,23 @@ def profile_call(label, fn, out_dir, filename):
         "each): " + str({k: (round(sum(t) / 1e3, 4), len(t),
                              [round(u, 1) for u in t])
                          for k, t in sorted(ours.items())}))
+    out = {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+           "kernels_ms": sum(sum(t) for t in ours.values()) / 1e3}
+    if key_dim is not None:
+        # a CPU operation's own kernels (not its children's), so that each
+        # kernel is counted once
+        us = 0.0
+        for e in events:
+            shapes = getattr(e, "input_shapes", None) or []
+            if any(isinstance(sh, (list, tuple)) and key_dim in sh
+                   for sh in shapes):
+                us += sum(getattr(k, "duration", 0)
+                          for k in getattr(e, "kernels", []))
+        out["key_dim_ms"] = us / 1e3
+        log(f"profile {label}: operations over the {key_dim} keys "
+            f"(QK^T, softmax, AV, forward and backward) {us / 1e3:.3f} ms "
+            "of device time")
+    return out
 
 
 def phase_profile(pred, batch, out_dir):
@@ -2028,7 +2417,7 @@ def main(argv) -> int:
     profile_dir = None
     if "--profile" in argv:
         profile_dir = os.path.abspath(argv[argv.index("--profile") + 1])
-    counts, calls, chunks = phase_predictor(profile_dir)
+    counts, calls, chunks, _ = phase_predictor(profile_dir)
     phase_main_path_inputs(calls, chunks)
     bwd = phase_roi_align_bwd(gen)
     kernels.append(dict(
@@ -2058,6 +2447,8 @@ def main(argv) -> int:
         fed_counts, eval_counts, off_counts, workflow = phase_workflow(
             os.path.join(tmp, "voc"), tv_pth, profile_dir)
         coco_counts, coco = phase_coco(os.path.join(tmp, "coco"), tv_pth)
+        text_counts, _ = phase_text(os.path.join(tmp, "text"), workflow,
+                                    tv_pth, per_step, profile_dir)
     pcb = workflow["pcb"]
     log(f"PCB summary (phases 9 and 10; {card}): VOC {_fmt_pcb(pcb)}; "
         f"evaluation {pcb['on_images_per_s']:.2f} images/s with PCB, "
@@ -2093,7 +2484,8 @@ def main(argv) -> int:
             "workflow_training": fed_counts[name],
             "workflow_finetune_and_eval_pcb": eval_counts[name],
             "workflow_eval_pcb_off": off_counts[name],
-            "coco_finetune_and_eval_pcb": coco_counts[name]}
+            "coco_finetune_and_eval_pcb": coco_counts[name],
+            **{path: c[name] for path, c in text_counts.items()}}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
         if name == "roi_align_v2_fwd":

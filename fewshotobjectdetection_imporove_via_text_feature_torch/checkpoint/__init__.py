@@ -9,7 +9,12 @@ from .torch_import import (
     load_torch_state,
     maybe_load_reference_weights,
 )
-from .surgery import reset_optimizer, surgery_randinit, surgery_remove
+from .surgery import (
+    reset_optimizer,
+    surgery_randinit,
+    surgery_remove,
+    surgery_reset_student,
+)
 
 __all__ = [
     "Checkpointer",
@@ -23,4 +28,5 @@ __all__ = [
     "reset_optimizer",
     "surgery_randinit",
     "surgery_remove",
+    "surgery_reset_student",
 ]

@@ -5,13 +5,17 @@ parameter tree, or initialised from a seed.
 package's ``checkpoint/torch_import.py`` mapping (``_ours_to_d2`` and
 ``_deconvert``): flax paths -> detectron2 state-dict names, with HWIO ->
 OIHW convolutions, (in, out) -> (out, in) linears and (C,) -> (1, C, 1, 1)
-affines. ``init_weights`` gives a model the JAX package's initialisers,
-drawn from a ``torch.Generator``.
+affines. The text branches' parameters keep their flax paths as names
+(``roi_heads.attention.attention.w_q.weight``, ``roi_heads.mlp_adapter.0``
+for flax's ``layers_0``, ``pixel_attention.ffn.norm3.weight`` for a
+LayerNorm's ``scale``, ``bg_feature``). ``init_weights`` gives a model the
+JAX package's initialisers, drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -30,10 +34,35 @@ _INV_MOD = {
 }
 
 
+# the text branches' modules: at the top of the meta-arch, and in the ROI
+# head (its box_predictor has the flagship's names)
+_TEXT_TOP = ("bg_feature", "sem2vis_proj", "vis2sem_res2", "vis2sem_res3",
+             "vis2sem_res4", "to_rpn_input_proj", "LtoVproj", "attproj",
+             "pixel_attention")
+_TEXT_ROI = ("attention", "mlp_adapter", "stu_box_predictor",
+             "output_projection")
+
+
+def _text_path_to_name(p):
+    """A text-branch flax path -> (name, kind): the path joined with dots,
+    ``layers_N`` (flax ``nn.Sequential``) -> ``N``, a Dense ``kernel`` ->
+    ``weight`` (transposed), a LayerNorm ``scale`` -> ``weight``."""
+    parts = [re.sub(r"^layers_(\d+)$", r"\1", x) for x in p]
+    if parts[-1] == "kernel":
+        return ".".join(parts[:-1] + ["weight"]), "linear"
+    if parts[-1] == "scale":
+        return ".".join(parts[:-1] + ["weight"]), "plain"
+    return ".".join(parts), "plain"
+
+
 def jax_path_to_d2(path):
-    """Flattened flax path -> (detectron2 state-dict name, kind), or
-    (None, None) for a parameter with no detectron2 name."""
+    """Flattened flax path -> (this package's state-dict name, kind): the
+    detectron2 name, or the text branches' own; (None, None) for a path
+    with no name here."""
     p = tuple(map(str, path))
+    if p[0] in _TEXT_TOP or (len(p) > 2 and p[0] == "roi_heads"
+                             and p[1] in _TEXT_ROI):
+        return _text_path_to_name(p)
     if p == ("backbone", "stem_conv1", "kernel"):
         return "backbone.stem.conv1.weight", "conv"
     if len(p) == 3 and p[:2] == ("backbone", "stem_bn1"):
@@ -94,9 +123,9 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The flax param tree of the JAX ``GeneralizedRCNN`` (nested dicts of
-    numpy arrays) -> this package's ``state_dict`` (float32 tensors).
-    Raises on a parameter that has no name here (the text branches)."""
+    """The flax param tree of a JAX meta-arch (nested dicts of numpy
+    arrays) -> this package's ``state_dict`` (float32 tensors). Raises on a
+    parameter that has no name here."""
     state, unknown = {}, []
     for path, value in _flatten(params):
         name, kind = jax_path_to_d2(path)
@@ -104,7 +133,7 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
             unknown.append("/".join(map(str, path)))
             continue
         state[name] = torch.from_numpy(
-            np.ascontiguousarray(_to_torch_layout(value, kind)))
+            np.array(_to_torch_layout(value, kind), order="C"))
     if unknown:
         raise ValueError(f"parameters with no PyTorch name: {unknown}")
     return state
@@ -118,19 +147,47 @@ def _he_fan_out_(w: torch.Tensor, gen: torch.Generator):
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
+def _lecun_normal_(w: torch.Tensor, gen: torch.Generator):
+    """flax's default Dense draw (``lecun_normal``): a normal truncated at
+    +-2 std, rescaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+# weights of the text meta-archs and heads that flax draws with its default
+# Dense initialiser (the attention modules draw their own)
+_LECUN = re.compile(r"(^|\.)(mlp_adapter\.\d+|output_projection|sem2vis_proj"
+                    r"|vis2sem_res\d|to_rpn_input_proj|LtoVproj|attproj)"
+                    r"\.weight$")
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """The JAX package's initialisers, drawn from ``generator`` in parameter
-    order: He fan-out truncated normal for backbone and res5 convolutions,
-    zeros for each block's conv3 (so a random deep ResNet with identity
-    FrozenBN stays bounded), N(0, 0.01) for the RPN head and the class
-    scores, N(0, 0.001) for the box deltas, zero biases, and identity
-    FrozenBN and affine layers."""
+    """The JAX package's initialisers, drawn from ``generator``: first each
+    attention module's own (``init_params_``, models/attention.py), then in
+    parameter order He fan-out truncated normal for backbone and res5
+    convolutions, zeros for each block's conv3 (so a random deep ResNet with
+    identity FrozenBN stays bounded), N(0, 0.01) for the RPN head and the
+    class scores, N(0, 0.001) for the box deltas, flax's lecun normal for
+    the text heads' and meta-archs' other linears, N(0, 1) for
+    ``bg_feature``, zero biases, and identity FrozenBN and affine layers."""
+    done = set()
+    for module in model.modules():
+        own = [id(p) for p in module.parameters()]
+        if hasattr(module, "init_params_") and not done.intersection(own):
+            module.init_params_(generator)
+            done.update(own)
     for name, param in model.named_parameters():
+        if id(param) in done:
+            continue
         if name.endswith(".bias"):
             param.zero_()
         elif name.startswith("affine_"):
             param.fill_(1.0)
+        elif name == "bg_feature":
+            nn.init.normal_(param, 0.0, 1.0, generator=generator)
+        elif _LECUN.search(name):
+            _lecun_normal_(param, generator)
         elif name.endswith("conv3.weight"):
             param.zero_()
         elif name.startswith("proposal_generator.") or \
@@ -138,8 +195,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             nn.init.normal_(param, 0.0, 0.01, generator=generator)
         elif name.endswith("bbox_pred.weight"):
             nn.init.normal_(param, 0.0, 0.001, generator=generator)
-        else:
+        elif param.dim() == 4:
             _he_fan_out_(param, generator)
+        else:
+            raise ValueError(f"init_weights: no initialiser for {name}")
     for name, buf in model.named_buffers():
         if name.endswith(("norm.weight", "norm.running_var")):
             buf.fill_(1.0)

@@ -7,7 +7,9 @@ predictor so the fine-tune initialises it; ``surgery_randinit`` widens it
 from the base classes to all classes, base rows copied (VOC: the first
 positions; COCO: through the base-id -> all-contiguous-id map), the
 background row kept, novel rows N(0, 0.01) with zero bias;
-``reset_optimizer`` drops the optimizer state and zeroes the iteration.
+``reset_optimizer`` drops the optimizer state and zeroes the iteration;
+``surgery_reset_student`` draws a text head's student branch
+(``stu_box_predictor``, ``mlp_adapter``) afresh for a cold student.
 
 The novel rows are drawn from ``np.random.RandomState(seed)`` in the JAX
 package's order and shapes (a (features, outputs) kernel, cls_score before
@@ -84,3 +86,33 @@ def reset_optimizer(checkpoint: Dict) -> Dict:
            if k not in ("optimizer", "scheduler")}
     out["iteration"] = 0
     return out
+
+
+STUDENT = ("stu_box_predictor", "mlp_adapter")
+
+
+def surgery_reset_student(state: Dict[str, torch.Tensor], seed: int = 123):
+    """A copy of ``state`` with the text head's student branch drawn
+    afresh from a ``torch.Generator`` seeded with ``seed``: weights
+    N(0, 1 / fan_in), biases zero; the teacher, backbone and RPN as they
+    were. Returns (state, the number of tensors reset); raises ValueError
+    below 6 (not a TextRes5ROIHeads checkpoint)."""
+    gen = torch.Generator().manual_seed(seed)
+    out, n = dict(state), 0
+    for name, value in state.items():
+        if not any(f".{s}." in f".{name}" for s in STUDENT):
+            continue
+        value = torch.as_tensor(value)
+        if value.dim() >= 2:  # (out, in): fan_in is the product after out
+            fan_in = int(np.prod(value.shape[1:]))
+            out[name] = torch.randn(value.shape, generator=gen,
+                                    dtype=value.dtype) / np.sqrt(
+                                        max(fan_in, 1))
+        else:
+            out[name] = torch.zeros_like(value)
+        n += 1
+    if n < 6:
+        raise ValueError(
+            f"student branch not found (reset {n} tensors): is this a "
+            "TextRes5ROIHeads checkpoint?")
+    return out, n

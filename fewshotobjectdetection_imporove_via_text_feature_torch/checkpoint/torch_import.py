@@ -18,10 +18,11 @@ A Caffe2 ``_bn_s``/``_bn_b`` pair loads into FrozenBN's weight and bias; the
 running statistics keep mean 0 and var 1, so the scale is w / sqrt(1 + 1e-5)
 as in the JAX package (not detectron2's ``ones - eps`` convention).
 
-The load is not strict: a name with no translation, no parameter here (the
-text branches and ``stu_box_predictor``, ROADMAP.md Queue 1 item 10) or
-another shape (a base ``cls_score`` into a novel model) is skipped and
-counted, and the counts are logged.
+The load is not strict: a name with no translation, no tensor in the model
+(``stu_box_predictor`` in a model without a text head) or another shape (a
+base ``cls_score`` into a novel model) is skipped and counted, and the
+counts are logged. A text model loads the reference's
+``roi_heads.stu_box_predictor.{cls_score,bbox_pred}`` under those names.
 """
 
 from __future__ import annotations
@@ -159,8 +160,8 @@ def load_reference_weights(path: str, model: nn.Module):
     if path.endswith(".pkl"):
         return apply_weight_dict(model, load_c2_pkl(path), c2_to_d2)
     # this package's names are detectron2's: a name translates to itself,
-    # and one with no tensor here (stu_box_predictor, the text branches,
-    # num_batches_tracked) is skipped
+    # and one with no tensor in the model (stu_box_predictor without a text
+    # head, num_batches_tracked) is skipped
     if os.path.isdir(path) or path.endswith(".ckpt"):
         from .checkpointer import load_jax_checkpoint
 

@@ -1,6 +1,5 @@
 """Inference over a test loader, counterpart of the JAX package's
-``evaluation/evaluator.py`` (ref defrcn/evaluation/evaluator.py:82-162),
-for the flagship ``GeneralizedRCNN``.
+``evaluation/evaluator.py`` (ref defrcn/evaluation/evaluator.py:82-162).
 
 Batches reach the model's device through ``device_batches`` (on CUDA,
 copies on their own stream from page-locked memory). The model runs under
@@ -15,9 +14,13 @@ With ``pcb`` (a ``PrototypicalCalibrationBlock``), each batch's host
 detections, in original-image coordinates, are rescored with the batch's
 ``file_names`` before the evaluator sees them.
 
-Not here: the painting meta-archs that see test-time GT (ROADMAP.md Queue 1
-item 10) and multi-device evaluation (item 15). The flagship is a plain
-arch: it never sees GT, so ``TEST.NO_GT_EVAL`` changes nothing for it.
+The painting meta-archs (``eval_gt_role`` "paint": the Semantic and Text
+families) get each batch's test-time GT, as the reference's evaluation
+hands it to them (GT-leaky by design, PARITY #12); every other arch sees
+none. ``no_gt`` (TEST.NO_GT_EVAL) withholds it, so the Text family
+evaluates its serving path (an all-background map); the Semantic family
+refuses it, since its detection features are solely the painted map.
+Multi-device evaluation is ROADMAP.md Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -50,11 +53,20 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
         DatasetEvaluator], pcb=None, no_gt: bool = False):
     """Run ``model.forward_inference`` over the loader's batches on the
     model's device, rescore with ``pcb`` when given, and return
-    ``evaluator.evaluate()`` ({} without one). ``no_gt`` is accepted for
-    the JAX package's signature: the flagship never sees GT. Logs the image
-    count, the per-image compute time without the warm-up batches, and the
-    per-image wall time."""
-    del no_gt  # a plain arch: no test-time GT to withhold
+    ``evaluator.evaluate()`` ({} without one). A painting arch gets the
+    batch's GT unless ``no_gt``. Logs the image count, the per-image
+    compute time without the warm-up batches, and the per-image wall
+    time."""
+    role = getattr(model, "eval_gt_role", "teacher")
+    if no_gt and role == "paint" and getattr(
+            model, "paint_replaces_features", False):
+        raise ValueError(
+            "TEST.NO_GT_EVAL is not meaningful for "
+            f"{type(model).__name__}: its detection features are solely "
+            "the painted semantic map, so withholding GT evaluates a "
+            "constant feature map. Use the Text family for a serving-path "
+            "evaluation, or drop TEST.NO_GT_EVAL.")
+    feed_gt = not no_gt and role == "paint"
     if evaluator is not None:
         evaluator.reset()
     device = next(model.parameters()).device
@@ -66,8 +78,9 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
     batches = device_batches(data_loader, device)
     try:
         with torch.inference_mode():
-            for k, (images, _, meta) in enumerate(batches):
-                det = model.forward_inference(images)
+            for k, (images, gt, meta) in enumerate(batches):
+                det = model.forward_inference(images,
+                                              gt if feed_gt else None)
                 n = meta.get("valid_count", images.image.shape[0])
                 fields = [t[:n].cpu().numpy() for t in
                           (det.boxes, det.scores, det.classes, det.valid)]

@@ -14,8 +14,26 @@ from .fast_rcnn import (
     fast_rcnn_losses,
     rescale_detections,
 )
+from .attention import (
+    FFN,
+    LVAttention,
+    LVAttentionTextDomination,
+    SematicProposalAttention,
+    SingleHeadSiameseAttention,
+    loss_fn_kd_only,
+    scaled_dot_product_attention,
+)
 from .meta_arch import AffineLayer, GeneralizedRCNN
 from .roi_heads import Res5ROIHeads, label_and_sample_proposals
+from .text_heads import (
+    GeneralizedDistillatedRCNN,
+    GeneralizedSemanticRCNN,
+    GeneralizedTextAttRCNN,
+    GeneralizedTextRCNN,
+    SematicRes5ROIHeads,
+    TextRes5ROIHeads,
+    paint_semantic_map,
+)
 from .rpn import (
     RPNHead,
     cell_anchors,
@@ -38,6 +56,20 @@ __all__ = [
     "fast_rcnn_inference",
     "fast_rcnn_losses",
     "rescale_detections",
+    "FFN",
+    "LVAttention",
+    "LVAttentionTextDomination",
+    "SematicProposalAttention",
+    "SingleHeadSiameseAttention",
+    "loss_fn_kd_only",
+    "scaled_dot_product_attention",
+    "GeneralizedDistillatedRCNN",
+    "GeneralizedSemanticRCNN",
+    "GeneralizedTextAttRCNN",
+    "GeneralizedTextRCNN",
+    "SematicRes5ROIHeads",
+    "TextRes5ROIHeads",
+    "paint_semantic_map",
     "AffineLayer",
     "GeneralizedRCNN",
     "Res5ROIHeads",

@@ -1,11 +1,15 @@
-"""Model builder: cfg -> ``GeneralizedRCNN`` (torch ``nn.Module``).
+"""cfg -> a meta-architecture (torch ``nn.Module``): ``build_model``.
 
-Counterpart of the JAX package's ``models/build.py``. This package has the
-flagship DeFRCN detector so far: ``GeneralizedRCNN`` with ``Res5ROIHeads``
-and ``FastRCNNOutputLayers``, for inference and training. Any other
-meta-architecture, ROI head or output layer, and any training key this
-package does not honour, raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+Counterpart of the JAX package's ``models/build.py``: MODEL.META_ARCHITECTURE
+picks ``GeneralizedRCNN`` or a text-family meta-arch of ``text_heads.py``,
+MODEL.ROI_HEADS.NAME its ROI head (``Res5ROIHeads``, the Sematic and Text
+heads) and OUTPUT_LAYER its predictor. Every model but the plain
+``GeneralizedRCNN`` + ``Res5ROIHeads`` gets the class-embedding bank of
+DATASETS.TRAIN's classes (MODEL.ADDITION.NAME, GloVe by default, read under
+MODEL.ADDITION.EMBEDDING_PATH; synthetic vectors where no file is there)
+and a background vector orthogonal to its mean. StandardROIHeads and
+TPU.REMAT_BACKBONE raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -38,14 +42,12 @@ _FIXED_AT_DEFAULT = (
 )
 
 # where ROADMAP.md puts the names the JAX package builds and this package
-# does not have yet: StandardROIHeads has its own item, every other one
-# (the semantic, distillation and text meta-archs, heads and output
-# layers) is in the text-families item
+# does not have yet
 _LATER = {
     "StandardROIHeads": "Queue 1 item 13 (StandardROIHeads)",
     "TPU.REMAT_BACKBONE": "Queue 1 item 8 (training: activation recompute)",
 }
-_LATER_DEFAULT = "Queue 1 item 10 (text, semantic and distill families)"
+_OUTPUT_LAYERS = ("FastRCNNOutputLayers", "FastRCNNAttentionOutputLayers")
 
 
 def _get(cfg, dotted):
@@ -58,16 +60,47 @@ def _get(cfg, dotted):
 def _not_ported(what: str, name: str):
     return NotImplementedError(
         f"{what} {name!r} is not ported to the PyTorch package yet: "
-        f"ROADMAP.md {_LATER.get(name, _LATER_DEFAULT)}"
+        f"ROADMAP.md {_LATER[name]}"
     )
 
 
+def _text_head_kwargs(cfg):
+    """The class-embedding bank (C, dim) and the background vector (1, dim)
+    orthogonal to its mean, for every model but the plain GeneralizedRCNN +
+    Res5ROIHeads."""
+    if (cfg.MODEL.ROI_HEADS.NAME == "Res5ROIHeads"
+            and cfg.MODEL.META_ARCHITECTURE == "GeneralizedRCNN"):
+        return {}
+    from ..utils.class_embedding import (
+        create_normalized_orthogonal_tensor,
+        get_class_embed,
+    )
+    from ..utils.class_name import get_class_name
+
+    model = cfg.MODEL.ADDITION.NAME
+    if model in (None, "none", ""):
+        model = "glove"
+    try:
+        names = get_class_name(cfg)
+    except (ValueError, IndexError) as e:
+        raise ValueError(
+            f"{cfg.MODEL.META_ARCHITECTURE}/{cfg.MODEL.ROI_HEADS.NAME} needs "
+            "a class-embedding bank but the class names could not be "
+            f"resolved from DATASETS.TRAIN={tuple(cfg.DATASETS.TRAIN)!r}: {e}"
+        ) from e
+    bank = get_class_embed(names, model,
+                           root=cfg.MODEL.ADDITION.EMBEDDING_PATH)
+    bg = create_normalized_orthogonal_tensor(bank.mean(axis=0))
+    return {"class_embed": bank, "bg_embed": bg}
+
+
 def build_model(cfg):
-    """cfg -> ``GeneralizedRCNN`` with float32 parameters on the CPU (the
-    caller moves it to its device); reads what inference and training need,
-    as the JAX package's ``_common_kwargs`` does (ROI_HEADS.FREEZE_FEAT is
-    the optimizer's, as there)."""
+    """cfg -> the model with float32 parameters on the CPU (the caller moves
+    it to its device); reads what inference and training need, as the JAX
+    package's ``_common_kwargs`` does (ROI_HEADS.FREEZE_FEAT and
+    ADDITION.FREEZEATTENTION are the optimizer's, as there)."""
     from .meta_arch import GeneralizedRCNN
+    from .text_heads import META_ARCHS
 
     for dotted, want in _FIXED_AT_DEFAULT:
         got = _get(cfg, dotted)
@@ -76,20 +109,26 @@ def build_model(cfg):
                 f"{dotted} = {got!r}: only the reference architecture "
                 f"({dotted} = {want!r}) is implemented"
             )
-    if cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
-        raise _not_ported("META_ARCHITECTURE", cfg.MODEL.META_ARCHITECTURE)
-    if cfg.MODEL.ROI_HEADS.NAME != "Res5ROIHeads":
+    meta = cfg.MODEL.META_ARCHITECTURE
+    if meta != "GeneralizedRCNN" and meta not in META_ARCHS:
+        raise KeyError(f"Unknown META_ARCHITECTURE {meta!r}; have "
+                       f"{sorted(['GeneralizedRCNN', *META_ARCHS])}")
+    if cfg.MODEL.ROI_HEADS.NAME in _LATER:
         raise _not_ported("ROI_HEADS.NAME", cfg.MODEL.ROI_HEADS.NAME)
-    if cfg.MODEL.ROI_HEADS.OUTPUT_LAYER != "FastRCNNOutputLayers":
-        raise _not_ported("ROI_HEADS.OUTPUT_LAYER",
-                          cfg.MODEL.ROI_HEADS.OUTPUT_LAYER)
+    if cfg.MODEL.ROI_HEADS.OUTPUT_LAYER not in _OUTPUT_LAYERS:
+        raise KeyError(f"Unknown ROI_HEADS.OUTPUT_LAYER "
+                       f"{cfg.MODEL.ROI_HEADS.OUTPUT_LAYER!r}")
     if cfg.TPU.REMAT_BACKBONE:
         raise _not_ported("training option", "TPU.REMAT_BACKBONE")
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         cfg.TPU.COMPUTE_DTYPE]
     freeze_at = 4 if cfg.MODEL.BACKBONE.FREEZE else cfg.MODEL.BACKBONE.FREEZE_AT
     rpn, roi = cfg.MODEL.RPN, cfg.MODEL.ROI_HEADS
-    return GeneralizedRCNN(
+    text = _text_head_kwargs(cfg)
+    cls, extra = META_ARCHS.get(meta, (GeneralizedRCNN, {}))
+    return cls(
+        **extra,
+        **text,
         num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
         rpn_enable_decouple=cfg.MODEL.RPN.ENABLE_DECOUPLE,
         rpn_backward_scale=cfg.MODEL.RPN.BACKWARD_SCALE,
@@ -138,6 +177,15 @@ def build_model(cfg):
         test_candidate_topk=cfg.TPU.MAX_DETECTIONS_PRE_NMS,
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         pixel_std=tuple(cfg.MODEL.PIXEL_STD),
+        roi_heads_name=roi.NAME,
+        output_layer=roi.OUTPUT_LAYER,
+        l2_cosine=roi.L2_COSINE,
+        kl_temp=float(roi.KL_TEMP),
+        # the distillation gates (the reference's commented guards,
+        # roi_heads.py:608 and :746): the L2 feature loss needs DISTILLATE
+        # and L2, the KL logit loss DISTILLATE and KL (KL defaults True)
+        distill_l2=roi.DISTILLATE and roi.L2,
+        distill_kl=roi.DISTILLATE and roi.KL,
         dtype=dtype,
     )
 

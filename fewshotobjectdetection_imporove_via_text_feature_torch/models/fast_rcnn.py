@@ -29,26 +29,37 @@ def cls_dropout(x: torch.Tensor, rate: float, generator=None):
 
 class FastRCNNOutputLayers(nn.Module):
     """Linear cls (K+1) and box (4K, or 4 class-agnostic) heads, float32.
-    With ``cls_dropout``, the cls input (not the box input) goes through
-    dropout at ``dropout_ratio`` in training."""
+    ``att_x``, when given, is the cls input in place of ``x`` (ref
+    fast_rcnn.py:403-417): ``cls_in_features`` is its width (the text and
+    semantic heads' attended features, or the K+1 attention scores of the
+    cross-output head). With ``attention_scores_as_logits``
+    (FastRCNNAttentionOutputLayers) the cls input is the scores and there
+    is no ``cls_score``. With ``cls_dropout``, the cls input (not the box
+    input) goes through dropout at ``dropout_ratio`` in training."""
 
     def __init__(self, in_features: int, num_classes: int,
                  cls_agnostic_bbox_reg: bool = False, box_dim: int = 4,
-                 cls_dropout: bool = False, dropout_ratio: float = 0.8):
+                 cls_dropout: bool = False, dropout_ratio: float = 0.8,
+                 cls_in_features: int = None,
+                 attention_scores_as_logits: bool = False):
         super().__init__()
         num_reg = 1 if cls_agnostic_bbox_reg else num_classes
-        self.cls_score = nn.Linear(in_features, num_classes + 1)
+        self.cls_score = None
+        if not attention_scores_as_logits:
+            self.cls_score = nn.Linear(cls_in_features or in_features,
+                                       num_classes + 1)
         self.bbox_pred = nn.Linear(in_features, num_reg * box_dim)
         self.cls_dropout = cls_dropout
         self.dropout_ratio = dropout_ratio
 
-    def forward(self, x, train: bool = False, generator=None):
+    def forward(self, x, att_x=None, train: bool = False, generator=None):
         if x.dim() > 2:
             x = x.flatten(1)
-        cls_in = x
+        cls_in = x if att_x is None else att_x
         if self.cls_dropout and train:
-            cls_in = cls_dropout(x, self.dropout_ratio, generator)
-        return self.cls_score(cls_in), self.bbox_pred(x)
+            cls_in = cls_dropout(cls_in, self.dropout_ratio, generator)
+        scores = cls_in if self.cls_score is None else self.cls_score(cls_in)
+        return scores, self.bbox_pred(x)
 
 
 def fast_rcnn_losses(pred_logits, pred_deltas, proposal_boxes, gt_boxes,

@@ -7,6 +7,12 @@ head -> fixed-shape Fast R-CNN inference -> original-frame boxes
 sampling and Fast R-CNN losses (``forward_train``). Module names follow
 detectron2's state dict (``backbone``, ``proposal_generator.rpn_head``,
 ``roi_heads``, ``affine_rpn``, ``affine_rcnn``).
+
+The ROI head is chosen by ``roi_heads_name`` (MODEL.ROI_HEADS.NAME):
+``Res5ROIHeads``, or a text-family head of ``text_heads.py`` with the class
+bank. The text meta-archs there reuse this skeleton: ``compute_features``
+takes the GT they paint, ``_train_tail`` their extra losses, and
+``eval_gt_role`` says what GT handed to ``forward_inference`` means.
 """
 
 from __future__ import annotations
@@ -16,7 +22,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..ops.box_ops import pairwise_iou
 from ..ops.gdl import decouple_layer
+from ..ops.matcher import match_proposals
 from ..structures import Detections, GTInstances, ImageBatch
 from .backbone import RESNET_STAGES, ResNetC4
 from .fast_rcnn import (
@@ -113,6 +121,14 @@ class GeneralizedRCNN(nn.Module):
         test_candidate_topk: int = 1024,
         pixel_mean: Tuple[float, ...] = (103.530, 116.280, 123.675),
         pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0),
+        roi_heads_name: str = "Res5ROIHeads",
+        output_layer: str = "FastRCNNOutputLayers",
+        class_embed=None,
+        bg_embed=None,
+        l2_cosine: bool = False,
+        kl_temp: float = 1.0,
+        distill_l2: bool = True,
+        distill_kl: bool = True,
         dtype=torch.float32,
     ):
         super().__init__()
@@ -149,6 +165,7 @@ class GeneralizedRCNN(nn.Module):
         self.test_candidate_topk = test_candidate_topk
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
+        self.res2_out_channels = res2_out_channels
         self.dtype = dtype
 
         self.backbone = ResNetC4(
@@ -164,17 +181,45 @@ class GeneralizedRCNN(nn.Module):
         # when that branch is decoupled
         self.affine_rpn = AffineLayer(c4) if rpn_enable_decouple else None
         self.affine_rcnn = AffineLayer(c4) if roi_enable_decouple else None
-        self.roi_heads = Res5ROIHeads(
-            num_classes=num_classes, sampling_ratio=sampling_ratio,
-            pooler_resolution=pooler_resolution,
-            res2_out_channels=res2_out_channels,
-            width_per_group=width_per_group,
-            res5_blocks=RESNET_STAGES[depth][3],
-            cls_agnostic_bbox_reg=cls_agnostic_bbox_reg, roi_chunk=roi_chunk,
-            stride_in_1x1=stride_in_1x1,
-            elide_strided_bins=elide_strided_bins, cls_dropout=cls_dropout,
-            dropout_ratio=dropout_ratio, dtype=dtype,
-        )
+        self.roi_heads = self.build_roi_heads(
+            roi_heads_name,
+            dict(num_classes=num_classes, sampling_ratio=sampling_ratio,
+                 pooler_resolution=pooler_resolution,
+                 res2_out_channels=res2_out_channels,
+                 width_per_group=width_per_group,
+                 res5_blocks=RESNET_STAGES[depth][3],
+                 cls_agnostic_bbox_reg=cls_agnostic_bbox_reg,
+                 roi_chunk=roi_chunk, stride_in_1x1=stride_in_1x1,
+                 elide_strided_bins=elide_strided_bins,
+                 cls_dropout=cls_dropout, dropout_ratio=dropout_ratio,
+                 attention_output_layer=(
+                     output_layer == "FastRCNNAttentionOutputLayers"),
+                 dtype=dtype),
+            dict(class_embed=class_embed, bg_embed=bg_embed,
+                 l2_cosine=l2_cosine, kl_temp=kl_temp,
+                 distill_l2=distill_l2, distill_kl=distill_kl))
+
+    @staticmethod
+    def build_roi_heads(name: str, common: dict, text: dict):
+        """MODEL.ROI_HEADS.NAME -> the ROI head (ref ROI_HEADS_REGISTRY)."""
+        if name == "Res5ROIHeads":
+            return Res5ROIHeads(**common)
+        from .text_heads import SematicRes5ROIHeads, TextRes5ROIHeads
+
+        if name in ("SematicRes5ROIHeads", "SematicRes5ROIHeadsCrossOutput"):
+            return SematicRes5ROIHeads(
+                class_embed=text["class_embed"], bg_embed=text["bg_embed"],
+                cross_output=name.endswith("CrossOutput"), **common)
+        kinds = {"TextRes5ROIHeads": "lv", "TextRes5ROIHeads_VKV": "lv_vkv",
+                 "TextRes5ROIHeads_textDomination": "text_dom",
+                 "TextRes5ROIHeads_textDomination_VKV": "text_dom_vkv"}
+        if name in kinds:
+            return TextRes5ROIHeads(
+                class_embed=text["class_embed"], attention_kind=kinds[name],
+                l2_cosine=text["l2_cosine"], kl_temp=text["kl_temp"],
+                distill_l2=text["distill_l2"], distill_kl=text["distill_kl"],
+                **common)
+        raise KeyError(f"Unknown ROI_HEADS.NAME {name!r}")
 
     # ------------------------------------------------------------------
     def normalize(self, image: torch.Tensor) -> torch.Tensor:
@@ -186,7 +231,21 @@ class GeneralizedRCNN(nn.Module):
         std = torch.tensor(self.pixel_std, dtype=dt, device=image.device)
         return ((image - mean) / std).permute(0, 3, 1, 2).contiguous()
 
-    def compute_features(self, images: ImageBatch):
+    # What GT handed to ``forward_inference`` means for this meta-arch (the
+    # reference's evaluation passes test-time GT to the model):
+    #   "teacher": label the proposals with it and run a text head's
+    #     teacher (the plain arch ignores it otherwise);
+    #   "paint": paint it into the features (the Semantic and Text
+    #     families, GT-leaky by design, PARITY #12);
+    #   "none": ignore it (Distillated).
+    eval_gt_role = "teacher"
+    # the detection features are solely the painted map (the Semantic
+    # family): evaluating without GT would score a constant map
+    paint_replaces_features = False
+
+    def compute_features(self, images: ImageBatch, gt=None):
+        """(res4 (B, C, H, W), {"res2", "res3", "res4"}); ``gt`` is for the
+        painting meta-archs, this one ignores it."""
         feats = self.backbone(self.normalize(images.image))
         feat = feats["res4"]
         if self.freeze_backbone:
@@ -237,8 +296,10 @@ class GeneralizedRCNN(nn.Module):
                                 dropout_generator)
 
     def _train_tail(self, feat, images: ImageBatch, gt: GTInstances,
-                    sampling_generator=None, dropout_generator=None):
-        """RPN losses, proposal sampling and ROI losses on res4 features."""
+                    sampling_generator=None, dropout_generator=None,
+                    extra_losses=None):
+        """RPN losses, proposal sampling and ROI losses on res4 features
+        (or the features a text meta-arch fused), and ``extra_losses``."""
         feat_rpn, feat_rcnn = self.branch_features(feat)
         logits, deltas, proposals = self.run_rpn(feat_rpn, images,
                                                  train=True)
@@ -270,23 +331,30 @@ class GeneralizedRCNN(nn.Module):
         )
         losses.update(self.roi_losses(feat_rcnn, sampled,
                                       dropout_generator))
+        if extra_losses:
+            losses.update(extra_losses)
         return losses
 
     def roi_losses(self, feat_rcnn, sampled, dropout_generator=None):
         """Fast R-CNN losses of the sampled ROIs, and the accuracy and
-        sample-count diagnostics, computed without gradient."""
+        sample-count diagnostics, computed without gradient; a text head's
+        teacher losses with the ``_t`` suffix and its extra losses."""
         gt_classes = sampled["gt_classes"].reshape(-1)
         valid = sampled["valid"].reshape(-1)
-        scores, deltas = self.roi_heads(feat_rcnn, sampled["boxes"],
-                                        train=True,
-                                        generator=dropout_generator)
-        losses = fast_rcnn_losses(
-            scores, deltas, sampled["boxes"].reshape(-1, 4),
-            sampled["gt_boxes"].reshape(-1, 4), gt_classes, valid,
-            num_classes=self.num_classes,
-            box_reg_weights=self.box_reg_weights,
-            smooth_l1_beta=self.smooth_l1_beta,
-        )
+        scores, deltas, aux = self.roi_heads(
+            feat_rcnn, sampled["boxes"], train=True,
+            generator=dropout_generator, gt_classes=gt_classes, valid=valid)
+
+        def det_losses(s, d):
+            return fast_rcnn_losses(
+                s, d, sampled["boxes"].reshape(-1, 4),
+                sampled["gt_boxes"].reshape(-1, 4), gt_classes, valid,
+                num_classes=self.num_classes,
+                box_reg_weights=self.box_reg_weights,
+                smooth_l1_beta=self.smooth_l1_beta,
+            )
+
+        losses = det_losses(scores, deltas)
         with torch.no_grad():
             b = sampled["valid"].shape[0]
             bg = self.num_classes
@@ -306,13 +374,48 @@ class GeneralizedRCNN(nn.Module):
                 "metric/roi_num_bg_samples":
                     (valid & (gt_classes == bg)).sum() / b,
             })
+        # the teacher's own detection losses (ref roi_heads.py:818-826);
+        # the rest of aux are scalar losses (loss_kl, loss_student_feat,
+        # loss_attentive)
+        if "teacher_scores" in aux:
+            t = det_losses(aux.pop("teacher_scores"),
+                           aux.pop("teacher_deltas"))
+            losses.update({k + "_t": v for k, v in t.items()})
+        losses.update(aux)
         return losses
 
-    def forward_inference(self, images: ImageBatch) -> Detections:
-        feat, _ = self.compute_features(images)
+    def label_proposals(self, proposals, gt: GTInstances):
+        """(B, P) class of each proposal: its matched GT's at IoU >= the ROI
+        threshold, else background (ref label_proposals,
+        roi_heads.py:677-713); no sampling."""
+        iou = pairwise_iou(gt.boxes.to(proposals.boxes.dtype),
+                           proposals.boxes)  # (B, G, P)
+        iou = torch.where(proposals.valid[:, None, :], iou,
+                          torch.zeros_like(iou))
+        midx, mlab = match_proposals(iou, gt.valid, [self.roi_iou_threshold],
+                                     [0, 1], False)
+        cls = torch.gather(gt.classes.long(), 1, midx)
+        bg = torch.full_like(cls, self.num_classes)
+        cls = torch.where(gt.valid.any(dim=1, keepdim=True), cls, bg)
+        return torch.where(mlab == 0, bg, cls)
+
+    def forward_inference(self, images: ImageBatch,
+                          gt: GTInstances = None) -> Detections:
+        """Detections of a batch. ``gt`` (test-time GT, as the reference's
+        evaluation hands it over) is used as ``eval_gt_role`` says: painted
+        into the features, or labelling the proposals for a text head's
+        teacher; without it a text head runs its student."""
+        paint_gt = gt if self.eval_gt_role == "paint" else None
+        feat, _ = self.compute_features(images, gt=paint_gt)
         feat_rpn, feat_rcnn = self.branch_features(feat)
         _, _, proposals = self.run_rpn(feat_rpn, images, train=False)
-        scores, deltas = self.roi_heads(feat_rcnn, proposals.boxes)
+        head_kwargs = {}
+        if gt is not None and self.eval_gt_role == "teacher":
+            head_kwargs = dict(
+                gt_classes=self.label_proposals(proposals, gt).reshape(-1),
+                valid=proposals.valid.reshape(-1))
+        scores, deltas, _ = self.roi_heads(feat_rcnn, proposals.boxes,
+                                           **head_kwargs)
         b, p = proposals.boxes.shape[:2]
         boxes, scores, classes, valid = fast_rcnn_inference(
             scores.reshape(b, p, -1), deltas.reshape(b, p, -1),

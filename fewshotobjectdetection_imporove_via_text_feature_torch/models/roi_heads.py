@@ -75,8 +75,11 @@ class Res5ROIHeads(nn.Module):
                  res5_blocks: int = 3, cls_agnostic_bbox_reg: bool = False,
                  roi_chunk: int = 256, stride_in_1x1: bool = True,
                  elide_strided_bins: bool = True, cls_dropout: bool = False,
-                 dropout_ratio: float = 0.8, dtype=torch.float32):
+                 dropout_ratio: float = 0.8,
+                 attention_output_layer: bool = False, cls_in_features=None,
+                 dtype=torch.float32):
         super().__init__()
+        self.num_classes = num_classes
         self.pooler_resolution = pooler_resolution
         self.pooler_scale = pooler_scale
         self.sampling_ratio = sampling_ratio
@@ -95,6 +98,8 @@ class Res5ROIHeads(nn.Module):
             res2_out_channels * 8, num_classes,
             cls_agnostic_bbox_reg=cls_agnostic_bbox_reg,
             cls_dropout=cls_dropout, dropout_ratio=dropout_ratio,
+            cls_in_features=cls_in_features,
+            attention_scores_as_logits=attention_output_layer,
         )
 
     def pooled_features(self, features: torch.Tensor,
@@ -121,8 +126,13 @@ class Res5ROIHeads(nn.Module):
                         .reshape(b, bx.shape[1], -1))
         return torch.cat(outs, dim=1).reshape(b * s, -1)
 
-    def forward(self, features, boxes, train: bool = False, generator=None):
-        """Returns (scores (B*S, K+1), deltas (B*S, 4K)), float32; ``train``
-        turns on the predictor's cls dropout, drawn from ``generator``."""
-        return self.box_predictor(self.pooled_features(features, boxes),
-                                  train, generator)
+    def forward(self, features, boxes, train: bool = False, generator=None,
+                gt_classes=None, valid=None):
+        """Returns (scores (B*S, K+1), deltas (B*S, 4K), aux), float32;
+        ``train`` turns on the predictor's cls dropout, drawn from
+        ``generator``. ``aux`` holds a head's extra losses and outputs (none
+        here); the text heads read ``gt_classes`` and ``valid`` (B*S,)."""
+        scores, deltas = self.box_predictor(
+            self.pooled_features(features, boxes), train=train,
+            generator=generator)
+        return scores, deltas, {}

@@ -12,9 +12,11 @@ trace (momentum) -> bias LR factor -> -lr -> zero for frozen parameters.
 ``torch.optim.SGD`` with dampening 0 does the same per group: it adds the
 decay to the (clipped) gradient, folds it into the momentum buffer, and
 steps by the group's lr, which carries the bias factor. Frozen parameters
-(the stages below FREEZE_AT, RPN.FREEZE, ROI_HEADS.FREEZE_FEAT; FrozenBN
-statistics and affines are buffers here) are in no group, so neither the
-step nor the decay ever moves them.
+(the stages below FREEZE_AT, RPN.FREEZE, ROI_HEADS.FREEZE_FEAT,
+ADDITION.FREEZEATTENTION; FrozenBN statistics and affines are buffers here)
+are in no group, so neither the step nor the decay ever moves them; the
+gradient still flows through them to what lies below. The attention FFN's
+LayerNorm is a live norm module: the "norm" group.
 """
 
 from __future__ import annotations
@@ -75,6 +77,10 @@ def frozen_prefixes(cfg):
         out.append("proposal_generator.")
     if cfg.MODEL.ROI_HEADS.FREEZE_FEAT:
         out.append("roi_heads.res5.")
+    if cfg.MODEL.ADDITION.FREEZEATTENTION:
+        # the parameters only (ref roi_heads.py:948-951): the gradient
+        # still flows through the attention into res5 and the backbone
+        out.append("roi_heads.attention.")
     return tuple(out)
 
 

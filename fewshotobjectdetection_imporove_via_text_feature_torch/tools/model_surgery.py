@@ -1,6 +1,6 @@
 """Checkpoint surgery on the command line, with the interface of the
-repository's ``tools/model_surgery.py`` (remove / randinit / reset), over
-``checkpoint/surgery.py``:
+repository's ``tools/model_surgery.py`` (remove / randinit / reset /
+reset_student), over ``checkpoint/surgery.py``:
 
     python -m fewshotobjectdetection_imporove_via_text_feature_torch.tools.model_surgery \\
         --dataset voc --method randinit \\
@@ -10,7 +10,9 @@ The source is a checkpoint of this package or of detectron2 (``.pth``,
 tensors or numpy arrays under ``"model"`` or bare) or a JAX package pickle
 checkpoint (``.ckpt``); the result is a ``.pth``
 (``<save-dir>/<tar-name>_surgery.pth`` for randinit, ``_remove`` for
-remove, ``_optimizer`` for reset) holding the model weights and iteration 0.
+remove, ``_optimizer`` for reset, ``_student`` for reset_student, which
+draws a text head's student branch afresh) holding the model weights and
+iteration 0.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..checkpoint import (
     surgery_randinit,
     surgery_remove,
 )
+from ..checkpoint.surgery import surgery_reset_student
 
 
 def load_state(path: str):
@@ -46,7 +49,8 @@ def main(argv=None):
     p.add_argument("--src-path", default="",
                    help="Path to the main checkpoint")
     p.add_argument("--save-dir", required=True)
-    p.add_argument("--method", choices=["remove", "randinit", "reset"],
+    p.add_argument("--method",
+                   choices=["remove", "randinit", "reset", "reset_student"],
                    required=True)
     p.add_argument("--tar-name", default="model_reset")
     p.add_argument("--seed", type=int, default=0)
@@ -56,6 +60,11 @@ def main(argv=None):
     state = reset_optimizer(load_state(args.src_path))
     if args.method == "reset":
         suffix = "_optimizer"
+    elif args.method == "reset_student":
+        state["model"], n = surgery_reset_student(state["model"],
+                                                  seed=args.seed)
+        print(f"re-randomized {n} student-branch tensors")
+        suffix = "_student"
     elif args.method == "remove":
         state["model"] = surgery_remove(state["model"])
         suffix = "_remove"

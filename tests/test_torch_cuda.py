@@ -13,9 +13,12 @@ backward kernel must agree with the autograd of the plain version within
 1e-5 of the gradient's largest value in float32 (the two sum in different
 orders) and within one bf16 step (2^-7 relative) more in bfloat16, and two
 of its launches on the same inputs must be bitwise equal; a train
-step of a tiny detector through the kernels must agree with the same step
-through the plain versions (losses rtol 1e-4, gradients 1e-4 of each
-tensor's largest value); the evaluation path (page-locked test batches ->
+step of a tiny detector through the kernels, flagship and text head (the
+teacher's cross-ROI attention and the distilled student), must agree with
+the same step through the plain versions (losses rtol 1e-4, gradients 1e-4
+of each tensor's largest value); a text serving batch through the kernels
+must match it through the plain versions as the evaluation path does; the
+evaluation path (page-locked test batches ->
 inference_on_dataset) through the kernels must match it through the plain
 versions (95% of each image's detections matched: class, IoU >= 0.9, score
 within 1e-3; AP50 within 0.5 points).
@@ -296,7 +299,9 @@ def test_roi_align_on_cuda_gives_the_features_a_gradient(card, dtype):
                                               2, g))
 
 
-def test_tiny_train_step_with_kernels_matches_plain_ops(card):
+def _tiny_detector(card, **kw):
+    """A tiny detector with live residual branches on the card, in training
+    mode, and a batch of two images with four GT boxes each."""
     from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint import (
         init_weights,
     )
@@ -308,46 +313,53 @@ def test_tiny_train_step_with_kernels_matches_plain_ops(card):
         ImageBatch,
     )
 
+    model = GeneralizedRCNN(
+        num_classes=5, depth=14, stem_out_channels=8,
+        res2_out_channels=16, width_per_group=4, freeze_at=0,
+        rpn_pre_nms_topk=(1200, 1200), rpn_post_nms_topk=(300, 300),
+        rpn_batch_per_image=256, roi_batch_per_image=512, **kw,
+    )
+    gen = torch.Generator().manual_seed(0)
+    init_weights(model, gen)
+    with torch.no_grad():  # live residual branches
+        for name, p in model.named_parameters():
+            if name.endswith("conv3.weight"):
+                p.normal_(0.0, 0.05, generator=gen)
+    model = model.to(card).train()
+    rng = np.random.RandomState(7)
+    images = ImageBatch(
+        image=torch.from_numpy(rng.uniform(0, 255, (2, 128, 160, 3))
+                               .astype(np.float32)),
+        hw=torch.tensor([[128, 160], [96, 128]], dtype=torch.int32),
+        orig_hw=torch.tensor([[128, 160], [96, 128]], dtype=torch.int32),
+    ).to(card)
+    xy = rng.uniform(0, 80, (2, 8, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(16, 40, (2, 8, 2))], -1)
+    gt = GTInstances(
+        boxes=torch.from_numpy(boxes.astype(np.float32)),
+        classes=torch.from_numpy(rng.randint(0, 5, (2, 8)).astype(
+            np.int32)),
+        valid=torch.from_numpy(np.arange(8)[None].repeat(2, 0) < 4),
+    ).to(card)
+    return model, images, gt
+
+
+def _step_matches_plain_ops(card, model, images, gt):
+    """One training forward/backward through the kernels (launching NMS
+    once, the ROIAlign forward and backward twice each) against the same
+    step through the plain versions: losses rtol 1e-4, every gradient
+    within 1e-4 of its largest value. Returns the kernels' losses."""
+    def step():
+        model.zero_grad(set_to_none=True)
+        losses = model.forward_train(
+            images, gt, torch.Generator(device=card).manual_seed(1))
+        sum(v for k, v in losses.items()
+            if not k.startswith("metric/")).backward()
+        return losses, {n: p.grad.clone()
+                        for n, p in model.named_parameters()}
+
     torch.backends.cudnn.deterministic = True
     try:
-        model = GeneralizedRCNN(
-            num_classes=5, depth=14, stem_out_channels=8,
-            res2_out_channels=16, width_per_group=4, freeze_at=0,
-            rpn_pre_nms_topk=(1200, 1200), rpn_post_nms_topk=(300, 300),
-            rpn_batch_per_image=256, roi_batch_per_image=512,
-        )
-        gen = torch.Generator().manual_seed(0)
-        init_weights(model, gen)
-        with torch.no_grad():  # live residual branches
-            for name, p in model.named_parameters():
-                if name.endswith("conv3.weight"):
-                    p.normal_(0.0, 0.05, generator=gen)
-        model = model.to(card).train()
-        rng = np.random.RandomState(7)
-        images = ImageBatch(
-            image=torch.from_numpy(rng.uniform(0, 255, (2, 128, 160, 3))
-                                   .astype(np.float32)),
-            hw=torch.tensor([[128, 160], [96, 128]], dtype=torch.int32),
-            orig_hw=torch.tensor([[128, 160], [96, 128]], dtype=torch.int32),
-        ).to(card)
-        xy = rng.uniform(0, 80, (2, 8, 2))
-        boxes = np.concatenate([xy, xy + rng.uniform(16, 40, (2, 8, 2))], -1)
-        gt = GTInstances(
-            boxes=torch.from_numpy(boxes.astype(np.float32)),
-            classes=torch.from_numpy(rng.randint(0, 5, (2, 8)).astype(
-                np.int32)),
-            valid=torch.from_numpy(np.arange(8)[None].repeat(2, 0) < 4),
-        ).to(card)
-
-        def step():
-            model.zero_grad(set_to_none=True)
-            losses = model.forward_train(
-                images, gt, torch.Generator(device=card).manual_seed(1))
-            sum(v for k, v in losses.items()
-                if not k.startswith("metric/")).backward()
-            return losses, {n: p.grad.clone()
-                            for n, p in model.named_parameters()}
-
         counts = (nms_sorted_cuda.launches, roi_align_cuda.launches,
                   roi_align_bwd_cuda.launches)
         got, got_g = step()
@@ -356,17 +368,65 @@ def test_tiny_train_step_with_kernels_matches_plain_ops(card):
                 roi_align_bwd_cuda.launches - counts[2]) == (1, 2, 2)
         with plain_ops():
             ref, ref_g = step()
-        for k in ref:
-            torch.testing.assert_close(got[k].float(), ref[k].float(),
-                                       rtol=1e-4, atol=1e-7, msg=k)
-        assert float(got["loss_box_reg"].detach()) > 0
-        for name, g in ref_g.items():
-            torch.testing.assert_close(
-                got_g[name], g, rtol=0,
-                atol=1e-4 * float(g.abs().max()), msg=name)
-        assert float(got_g["backbone.res4.0.conv1.weight"].abs().max()) > 0
     finally:
         torch.backends.cudnn.deterministic = False
+    for k in ref:
+        torch.testing.assert_close(got[k].float(), ref[k].float(),
+                                   rtol=1e-4, atol=1e-7, msg=k)
+    assert float(got["loss_box_reg"].detach()) > 0
+    for name, g in ref_g.items():
+        torch.testing.assert_close(
+            got_g[name], g, rtol=0,
+            atol=1e-4 * float(g.abs().max()), msg=name)
+    assert float(got_g["backbone.res4.0.conv1.weight"].abs().max()) > 0
+    return got
+
+
+def test_tiny_train_step_with_kernels_matches_plain_ops(card):
+    _step_matches_plain_ops(card, *_tiny_detector(card))
+
+
+def _text_head(**kw):
+    rng = np.random.RandomState(0)
+    bank = rng.randn(5, 16).astype(np.float32)
+    return dict(roi_heads_name="TextRes5ROIHeads",
+                class_embed=bank / np.linalg.norm(bank, axis=1,
+                                                  keepdims=True),
+                distill_l2=True, distill_kl=True, kl_temp=5.0, **kw)
+
+
+def test_tiny_text_train_step_with_kernels_matches_plain_ops(card):
+    """The text head of run_text_train_student.sh: the teacher's losses,
+    the KL and feature distillation and the cross-ROI attention's
+    gradients through the kernels match the plain ops."""
+    got = _step_matches_plain_ops(card, *_tiny_detector(card,
+                                                        **_text_head()))
+    assert {"loss_cls_t", "loss_box_reg_t", "loss_kl",
+            "loss_student_feat"} <= set(got)
+
+
+def test_tiny_text_serving_batch_with_kernels_matches_plain_ops(card):
+    """The text detector's inference through the kernels (NMS twice, the
+    ROIAlign forward twice for 300 proposals in chunks of 256) against the
+    plain ops: the student without GT, the teacher on GT-labelled
+    proposals."""
+    model, images, gt = _tiny_detector(card, **_text_head(
+        test_score_thresh=0.0))
+    model.eval()
+    for g in (None, gt):
+        with torch.inference_mode():
+            counts = (nms_sorted_cuda.launches, roi_align_cuda.launches)
+            det = model.forward_inference(images, g)
+            assert (nms_sorted_cuda.launches - counts[0],
+                    roi_align_cuda.launches - counts[1]) == (2, 2)
+            with plain_ops():
+                ref = model.forward_inference(images, g)
+        for i in range(2):
+            a, b = (tuple(t[i][d.valid[i]].cpu().numpy() for t in
+                          (d.boxes, d.scores, d.classes))
+                    for d in (det, ref))
+            assert len(a[0]) > 10
+            assert min(_matched_share(a, b), _matched_share(b, a)) >= 0.95
 
 
 def _workflow_cfg(root):

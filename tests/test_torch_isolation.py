@@ -35,7 +35,9 @@ def test_importing_the_port_loads_no_jax():
                          env=env, capture_output=True, text=True,
                          timeout=300, check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
-    assert f"{PORT}.engine.predictor" in mods
+    assert {f"{PORT}.engine.predictor", f"{PORT}.models.attention",
+            f"{PORT}.models.text_heads", f"{PORT}.utils.class_embedding",
+            f"{PORT}.utils.class_name"} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
 

@@ -258,13 +258,13 @@ def test_forward_inference_matches_jax(depth, stride_in_1x1, padded):
         )
 
 
-@pytest.mark.parametrize("key,value", [
-    ("MODEL.META_ARCHITECTURE", "GeneralizedTextRCNN"),
-    ("MODEL.ROI_HEADS.NAME", "StandardROIHeads"),
-    ("MODEL.ROI_HEADS.OUTPUT_LAYER", "FastRCNNAttentionOutputLayers"),
+@pytest.mark.parametrize("meta,key,value,item", [
+    ("GeneralizedRCNN", "MODEL.ROI_HEADS.NAME", "StandardROIHeads", "13"),
+    ("GeneralizedRCNN", "TPU.REMAT_BACKBONE", True, "8"),
+    ("GeneralizedTextRCNN", "MODEL.ROI_HEADS.NAME", "StandardROIHeads", "13"),
 ])
-def test_build_model_names_the_roadmap_item_of_what_is_not_ported(key,
-                                                                  value):
+def test_build_model_names_the_roadmap_item_of_what_is_not_ported(
+        meta, key, value, item):
     from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
         get_cfg,
     )
@@ -273,10 +273,12 @@ def test_build_model_names_the_roadmap_item_of_what_is_not_ported(key,
     )
 
     cfg = get_cfg()
+    cfg.MODEL.META_ARCHITECTURE = meta
     node = cfg
     *path, leaf = key.split(".")
     for part in path:
         node = node[part]
     node[leaf] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue 1 item {item} "):
         build_model(cfg)
