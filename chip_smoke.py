@@ -4,9 +4,10 @@ with its hand-written CUDA kernels, and check what comes out.
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --profile DIR  # also profile one bf16 batch of
-                                         # 8 and one bf16 train step of
-                                         # 16, flagship and text; the
-                                         # tables go to DIR
+                                         # 8 (DefaultPredictor and the
+                                         # exported artifact) and one bf16
+                                         # train step of 16, flagship and
+                                         # text; the tables go to DIR
 
 Phases, each of which fails the run on error:
   1. the card's name and power limit (nvidia-smi);
@@ -114,15 +115,41 @@ Phases, each of which fails the run on error:
      training (4 steps), randinit 15 -> 20, reset_student, the gfsod 1-shot
      config with the student flags (2 steps) and the evaluation of the 800
      test images at 32 with PCB (EVAL_THRESHOLDS): bAP50/nAP50 finite,
-     images/s, launches as expected.
+     images/s, launches as expected;
+ 12. the serving entry points on the same config at full width and depth,
+     seeded weights: (a) ``torch.export`` artifacts (``engine/export.py``),
+     float32 at 800x1344 batch 1 and 8, bfloat16 at the three
+     IMAGE_BUCKETS at batch 1 and 800x1344 at batch 8, each export's
+     seconds; (b) ``ServingPredictor`` on the card: one exported forward
+     launches NMS and the ROIAlign forward as often as DefaultPredictor's,
+     float32 detections set-matched against DefaultPredictor's on the same
+     weights and images (phase 5's criterion), bf16 requests and
+     predict_batch(8) timed beside DefaultPredictor's; (c) two
+     ``DetectionServer``s on localhost (float32: over the artifact with
+     max_batch 8, over DefaultPredictor with max_batch 1), 24 concurrent
+     JPEG requests of the three bucket sizes, every response set-matched
+     against DefaultPredictor on the decoded image, requests/s and p50/p99
+     ms; (d) TPU.DEVICE_PREPROCESS: ``device_resize_batch`` on the card
+     against the CPU (within 1e-3 on the 0-255 scale) and 3 bf16 Trainer
+     steps at batch 16 on raw 500x375 batches (CUDA events);
+ 13. StandardROIHeads (NUM_FC 2) on the same config: (a) float32 batch 2,
+     kernels against the plain ops as in phase 8 (a), one ROIAlign launch
+     a step at P 7, bin_stride 1, on res4's 1024 channels; (b) bf16 at
+     batch 16, 2 warm-up and 5 timed steps, peak memory; (c) the ROIAlign
+     forward and backward at bin_stride 1 on one more step's own inputs
+     against their plain versions, timed with their bounds; its serving
+     path in bf16 (NMS twice and ROIAlign once a forward); (d) one bf16
+     step with TPU.REMAT_BACKBONE on the batch of one without: losses
+     equal, peak memory of each.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b), 9, 10 and 11, by path, PCB's apart, and
-launches per train step),
+main paths of phases 5, 8 (b) and 9-13, by path, PCB's apart, launches per
+train step, and the ROIAlign kernels' numbers at StandardROIHeads'
+bin_stride 1),
 then the card's name and power limit, then as the last line
 {"ok": true, "device": {...}}. Exits
 non-zero, with no result, when CUDA is absent or the package is missing.
@@ -167,6 +194,10 @@ PCB_SCORE_TOL = 1e-5
 # detection of the other run has its class, IoU >= 0.9 and a score within
 # 1e-3; at least 95% of each run's detections must match, per image
 MATCH_IOU, MATCH_SCORE, MATCH_FRACTION = 0.9, 1e-3, 0.95
+
+
+# the kernels, in the order of the launch counters
+KERNEL_NAMES = ("greedy_nms", "roi_align_v2_fwd", "roi_align_v2_bwd")
 
 
 class PhaseError(RuntimeError):
@@ -1016,10 +1047,13 @@ def _recording_sampler():
                                     fn)
 
 
-def phase_train_f32(tmp, opts=(), grads=TRAIN_GRADS, label="train f32"):
+def phase_train_f32(tmp, opts=(), grads=TRAIN_GRADS, label="train f32",
+                    launches=(1, 2, 2)):
     """(a) float32, TF32 off, batch 2: one forward/backward through the
     kernels and one through the plain ops, with the same generators;
-    ``opts`` on top of the config (phase 11: the text head)."""
+    ``opts`` on top of the config (phase 11: the text head; phase 13:
+    StandardROIHeads, whose one ROIAlign launch a step gives
+    ``launches`` (1, 1, 1))."""
     import torch
     from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
         Trainer,
@@ -1082,8 +1116,7 @@ def phase_train_f32(tmp, opts=(), grads=TRAIN_GRADS, label="train f32"):
         f" equal; losses {losses}; relative loss differences "
         f"{_fmt(worst)}; gradient differences / max {_fmt(grad_err)}; "
         f"launches {counts}")
-    if counts != {"greedy_nms": 1, "roi_align_v2_fwd": 2,
-                  "roi_align_v2_bwd": 2}:
+    if counts != dict(zip(KERNEL_NAMES, launches)):
         raise PhaseError(f"{label}: launches {counts}")
     del trainer, model
     torch.cuda.empty_cache()
@@ -1140,7 +1173,7 @@ def _not_finite(losses):
 
 def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None, opts=(),
                      label="train bfloat16", profile_tag="bf16_train_step",
-                     key_dim=None):
+                     key_dim=None, launches=(1, 2, 2)):
     """(b) bfloat16 at IMS_PER_BATCH: Trainer.train over warm-up and timed
     steps, each ended by a CUDA event and one synchronize after the run;
     the launch counters span the whole run. With ``profile_dir``, one more
@@ -1181,8 +1214,7 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None, opts=(),
     bad = _not_finite(losses)
     if bad:
         raise PhaseError(f"{label}: non-finite losses at steps {bad}")
-    want = {"greedy_nms": steps, "roi_align_v2_fwd": 2 * steps,
-            "roi_align_v2_bwd": 2 * steps}
+    want = {k: n * steps for k, n in zip(KERNEL_NAMES, launches)}
     if counts != want:
         raise PhaseError(f"{label}: launches {counts}, expected {want}")
     step_ms = _spacings(start, ends)[warmup:]
@@ -1212,14 +1244,16 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None, opts=(),
             lambda: trainer.train_step(images, gt, steps + 1))
 
 
-def phase_train_inputs(calls, label="train_path"):
+def phase_train_inputs(calls, label="train_path", launches=(1, 2, 2)):
     """(c) phases 3, 4 and 7 again on the training path's own inputs: the
     RPN's sorted proposals (NMS), both 256-ROI chunks of sampled ROIs on the
     res4 map (ROIAlign forward) and their gradients (backward), as one more
-    bf16 step of (b) handed them over."""
+    bf16 step of (b) handed them over (phase 13: StandardROIHeads' one
+    launch each at P 7, bin_stride 1, ``launches`` (1, 1, 1)). Returns the
+    forward and backward checks' numbers."""
     got = {k: len(v) for k, v in calls.items()}
-    if got != {"nms": 1, "roi_align": 2, "roi_align_bwd": 2}:
-        raise PhaseError(f"train bf16: captured kernel calls {got}")
+    if got != dict(zip(("nms", "roi_align", "roi_align_bwd"), launches)):
+        raise PhaseError(f"{label}: captured kernel calls {got}")
     nms = check_nms(f"{label}_rpn", *calls["nms"][0])
     fwd = [check_roi_align(f"{label}_chunk{i}", args, ROI_BF16_TOL)
            for i, args in enumerate(calls["roi_align"])]
@@ -1227,8 +1261,9 @@ def phase_train_inputs(calls, label="train_path"):
            for i, args in enumerate(calls["roi_align_bwd"])]
     log(f"{label}'s inputs: NMS {nms['ms']:.4f} ms; ROIAlign forward "
         f"{sum(r['ms'] for r in fwd):.4f} ms and backward "
-        f"{sum(r['ms'] for r in bwd):.4f} ms over 2 launches each, enqueued "
-        f"from Python")
+        f"{sum(r['ms'] for r in bwd):.4f} ms over {len(fwd)} launches each, "
+        f"enqueued from Python")
+    return fwd, bwd
 
 
 # ----------------------------------------------------------------- phase 9
@@ -2282,6 +2317,458 @@ def phase_text(tmp, voc, tv_pth, flagship, profile_dir=None):
             "text_workflow_student_and_eval": ft_counts}, text
 
 
+# ---------------------------------------------------------------- phase 12
+SERVING_BATCHES = (1, 8)
+SERVER_REQUESTS = 24
+SERVER_WINDOW_MS = 20.0
+
+
+def _cfg(dtype, opts=()):
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+
+    cfg = get_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(list(opts))
+    cfg.MODEL.WEIGHTS = ""  # no checkpoint in the repo: seeded weights
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    return cfg
+
+
+def _export_artifact(path, cfg, model, programs_at, label):
+    """Export ``model`` at every (batch, shape) of ``programs_at`` and save
+    the artifact; logs each export's seconds."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.export import (
+        export_program,
+        save_serving_artifact,
+        serving_meta,
+    )
+
+    state = model.state_dict()
+    programs, secs = {}, {}
+    for b, shape in programs_at:
+        t0 = time.perf_counter()
+        programs[(b, *shape)] = export_program(model, state, b, shape)
+        secs[f"{b}x{shape[0]}x{shape[1]}"] = round(
+            time.perf_counter() - t0, 2)
+    meta = serving_meta(cfg, sorted({b for b, _ in programs_at}),
+                        sorted({tuple(sh) for _, sh in programs_at}), "cuda")
+    t0 = time.perf_counter()
+    save_serving_artifact(path, meta, programs, state)
+    log(f"export {label}: seconds a program {secs}; saved "
+        f"{os.path.getsize(path) / 1e6:.1f} MB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return secs
+
+
+def _launches_one_forward(pred, image):
+    """The kernels' launches of one batch-1 request."""
+    import torch
+
+    read = _reset_counts()
+    pred(image)
+    torch.cuda.synchronize()
+    return read()
+
+
+def _jpeg(bgr):
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(bgr[:, :, ::-1].copy()).save(buf, format="JPEG",
+                                                 quality=95)
+    return buf.getvalue()
+
+
+def _decoded(jpeg):
+    """The BGR pixels the server decodes from ``jpeg``."""
+    import io
+
+    import numpy as np
+    from PIL import Image, ImageOps
+
+    img = ImageOps.exif_transpose(Image.open(io.BytesIO(jpeg)))
+    return np.asarray(img.convert("RGB"), np.uint8)[:, :, ::-1]
+
+
+def _serve(predictor, bodies, max_batch):
+    """A DetectionServer on localhost over ``predictor``; every body
+    POSTed to /detect at once from its own thread. Returns (responses,
+    seconds each, wall seconds)."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.server import (
+        DetectionServer,
+    )
+
+    server = DetectionServer(predictor, port=0, max_batch=max_batch,
+                             batch_window_ms=SERVER_WINDOW_MS).start()
+    url = f"http://{server.host}:{server.port}/detect"
+
+    def post(body):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+        return out, time.perf_counter() - t0
+
+    try:
+        post(bodies[0])  # warm-up
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            done = list(pool.map(post, bodies))
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    outs = [{"boxes": np.asarray(o["boxes"], np.float32).reshape(-1, 4),
+             "scores": np.asarray(o["scores"], np.float32),
+             "classes": np.asarray(o["classes"], np.int64)}
+            for o, _ in done]
+    return outs, [t for _, t in done], wall
+
+
+def _set_match(got, ref, label):
+    fracs = [min(_match_fraction(g, r), _match_fraction(r, g))
+             for g, r in zip(got, ref)]
+    if min(fracs) < MATCH_FRACTION:
+        raise PhaseError(f"{label}: detections differ, matched {fracs}")
+    return fracs
+
+
+def phase_serving(tmp, profile_dir=None):
+    """Phase 12: the serving entry points on the flagship config at full
+    width and depth. With ``profile_dir``, one bf16 predict_batch(8) of the
+    artifact is profiled. Returns the launch counts of the exported
+    programs' main path and of the HTTP servers, and the numbers."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.export import (
+        ServingPredictor,
+    )
+
+    images = _synthetic_images(1, 11)
+    singles, batch = images[:3], images[3:]
+    out = {}
+    # float32, TF32 off, deterministic convolutions: the artifact against
+    # DefaultPredictor on the same weights, as phase 5 holds the kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg32 = _cfg("float32")
+    pred32 = DefaultPredictor(cfg32, seed=0)
+    bucket = tuple(cfg32.TPU.IMAGE_BUCKETS[-1])
+    path32 = os.path.join(tmp, "f32.fsodtf-torch")
+    out["export_s_f32"] = _export_artifact(
+        path32, cfg32, pred32.model,
+        [(b, bucket) for b in SERVING_BATCHES], "float32")
+    serving32 = ServingPredictor(path32)
+    want = _launches_one_forward(pred32, singles[0])
+    got = _launches_one_forward(serving32, singles[0])
+    if got != want or not want["greedy_nms"] or not want["roi_align_v2_fwd"]:
+        raise PhaseError(f"export: launches of one forward {got}, "
+                         f"DefaultPredictor's {want}")
+    ref, _, _ = _drive(pred32, singles, batch)
+    res, _, _ = _drive(serving32, singles, batch)
+    _check_outputs(res, images, cfg32.MODEL.ROI_HEADS.NUM_CLASSES)
+    fracs = _set_match(res, ref, "ServingPredictor float32")
+    log(f"(b) ServingPredictor float32 vs DefaultPredictor on the same "
+        f"weights and images: detections per image "
+        f"{[len(o['boxes']) for o in res]} vs {[len(o['boxes']) for o in ref]}"
+        f"; matched share (worst way) {[round(f, 4) for f in fracs]}; "
+        f"launches of one forward {got} = DefaultPredictor's")
+
+    # (c) the HTTP service, float32: 24 concurrent JPEG requests at the
+    # three bucket sizes (every one pads to the 800x1344 bucket at the
+    # config's test size), over the artifact with dynamic batching and over
+    # DefaultPredictor one request at a time
+    sizes = [tuple(b) for b in cfg32.TPU.IMAGE_BUCKETS]
+    bodies = [_jpeg(_synthetic_images(100 + k, 1, *sizes[k % 3])[0])
+              for k in range(SERVER_REQUESTS)]
+    decoded = [_decoded(b) for b in bodies]
+    ref = [pred32(im) for im in decoded]
+    read = _reset_counts()
+    for name, predictor, max_batch in (
+            ("ServingPredictor", serving32, max(SERVING_BATCHES)),
+            ("DefaultPredictor", pred32, 1)):
+        got, secs, wall = _serve(predictor, bodies, max_batch)
+        fracs = _set_match(got, ref, f"server over {name}")
+        ms = sorted(t * 1e3 for t in secs)
+        p99 = ms[min(len(ms) - 1, int(round(0.99 * (len(ms) - 1))))]
+        out[f"server_{name}"] = dict(
+            requests_per_s=len(bodies) / wall, p50_ms=statistics.median(ms),
+            p99_ms=p99, max_batch=max_batch)
+        log(f"(c) DetectionServer over {name} (float32, max_batch "
+            f"{max_batch}, window {SERVER_WINDOW_MS} ms): {len(bodies)} "
+            f"concurrent JPEG requests of {sorted(set(sizes))} in "
+            f"{wall:.2f} s, {len(bodies) / wall:.2f} requests/s, p50 "
+            f"{statistics.median(ms):.2f} ms, p99 {p99:.2f} ms; every "
+            f"response set-matches DefaultPredictor on the decoded image "
+            f"(worst {min(fracs):.4f})")
+    server_counts = read()
+    del serving32, pred32
+    torch.cuda.empty_cache()
+
+    # (a), (b) bfloat16, the default COMPUTE_DTYPE: the buckets at batch 1
+    # and the largest at batch 8, timed beside DefaultPredictor
+    torch.backends.cudnn.deterministic = False
+    cfg = _cfg("bfloat16")
+    pred = DefaultPredictor(cfg, seed=0)
+    path = os.path.join(tmp, "bf16.fsodtf-torch")
+    at = [(1, tuple(b)) for b in cfg.TPU.IMAGE_BUCKETS] + [
+        (max(SERVING_BATCHES), bucket)]
+    out["export_s_bf16"] = _export_artifact(path, cfg, pred.model, at,
+                                            "bfloat16")
+    serving = ServingPredictor(path)
+    for name, p in (("DefaultPredictor", pred), ("ServingPredictor",
+                                                 serving)):
+        _drive(p, singles[:1], batch)  # warm-up
+        read = _reset_counts()
+        res, secs, bsec = _drive(p, singles, batch)
+        counts = read()
+        _check_outputs(res, images, cfg.MODEL.ROI_HEADS.NUM_CLASSES)
+        out[name] = dict(request_ms=[x * 1e3 for x in secs],
+                         batch8_images_per_s=len(batch) / bsec)
+        if name == "ServingPredictor":
+            export_counts = counts
+        log(f"(b) {name} bfloat16: batch-1 requests "
+            f"{[round(x * 1e3, 2) for x in secs]} ms, predict_batch(8) "
+            f"{bsec * 1e3:.2f} ms ({len(batch) / bsec:.2f} images/s); "
+            f"launches {counts}")
+    if profile_dir:
+        profile_call("bf16 ServingPredictor predict_batch(8)",
+                     lambda: serving.predict_batch(batch), profile_dir,
+                     "profile_bf16_serving_batch8.txt")
+    del serving, pred
+    torch.cuda.empty_cache()
+    return export_counts, server_counts, out
+
+
+def raw_train_batches(seed, n_batches, batch, raw=(384, 512), h=375, w=500,
+                      max_size=1333, shorts=(704, 736, 768, 800),
+                      max_gt=100, num_classes=15):
+    """Raw batches of the device-preprocessing loader: 500x375 images (a
+    VOC size) in the (384, 512) source bucket, each with a draw of the
+    short side (all landing in the 800x1344 target bucket) and of the
+    flip, and 1-20 GT boxes where the device resize puts them. CPU
+    tensors; (images, gt, meta)."""
+    import numpy as np
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data.device_preprocess import (
+        scale_boxes,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data.mapper import (
+        resize_shortest_edge_size,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.structures import (
+        GTInstances,
+        ImageBatch,
+    )
+
+    rng = np.random.RandomState(seed)
+    images = _synthetic_images(seed, n_batches * batch, h, w)
+    out = []
+    for k in range(n_batches):
+        canvas = np.zeros((batch, *raw, 3), np.uint8)
+        boxes = np.zeros((batch, max_gt, 4), np.float32)
+        classes = np.zeros((batch, max_gt), np.int32)
+        valid = np.zeros((batch, max_gt), bool)
+        short = rng.choice(shorts, batch).astype(np.float32)
+        flip = rng.rand(batch) < 0.5
+        hw = np.zeros((batch, 2), np.int32)
+        for i in range(batch):
+            canvas[i, :h, :w] = images[k * batch + i]
+            hw[i] = resize_shortest_edge_size(h, w, short[i], max_size)
+            n = rng.randint(1, 21)
+            wh = rng.uniform(16, 250, (n, 2))
+            xy = rng.uniform(0, 1, (n, 2)) * ([w, h] - wh)
+            boxes[i, :n] = scale_boxes(np.concatenate([xy, xy + wh], 1),
+                                       (h, w), hw[i], flip[i])
+            classes[i, :n] = rng.randint(0, num_classes, n)
+            valid[i, :n] = True
+        orig = torch.tensor([[h, w]] * batch, dtype=torch.int32)
+        out.append((ImageBatch(torch.from_numpy(canvas),
+                               torch.from_numpy(hw), orig),
+                    GTInstances(torch.from_numpy(boxes),
+                                torch.from_numpy(classes),
+                                torch.from_numpy(valid)),
+                    {"short": short, "flip": flip, "target_hw": (800, 1344),
+                     "max_size": max_size}))
+    return out
+
+
+def phase_device_preprocess(tmp, steps=3):
+    """Phase 12 (d): TPU.DEVICE_PREPROCESS. The resize of one raw batch of
+    16 on the card against the same call on the CPU, then ``steps`` bf16
+    Trainer steps at batch 16 on raw batches, each ended by a CUDA event.
+    Returns the run's launches and the numbers."""
+    import statistics
+
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data.device_preprocess import (
+        device_resize_batch,
+        preprocess_batch,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+    )
+
+    batch = _cfg("bfloat16").SOLVER.IMS_PER_BATCH
+    data = raw_train_batches(13, 2, batch)
+    images, _, meta = data[0]
+    args = (images.image, images.orig_hw, torch.from_numpy(meta["flip"]),
+            torch.from_numpy(meta["short"]), meta["max_size"],
+            meta["target_hw"])
+    want, want_hw = device_resize_batch(*args)
+    got, got_hw = device_resize_batch(*(a.cuda() if torch.is_tensor(a)
+                                        else a for a in args))
+    err = float((got.cpu() - want).abs().max())
+    if not torch.equal(got_hw.cpu(), want_hw) or not err <= 1e-3 \
+            or not torch.equal(want_hw, images.hw):
+        raise PhaseError(f"device resize: card vs CPU max abs err {err}, "
+                         f"sizes {got_hw.tolist()} vs {want_hw.tolist()}")
+    on_card = images.to("cuda")
+    ms = time_ms(lambda: preprocess_batch(on_card, meta), 5)
+    log(f"(d) device_resize_batch, {batch} raw 500x375 images in a "
+        f"(384, 512) source bucket -> 800x1344: card vs CPU max abs err "
+        f"{err:.3g} (0-255 scale, tol 1e-3), sizes equal; "
+        f"{ms:.3f} ms a batch on the card")
+
+    cfg = _train_cfg(os.path.join(tmp, "dp"), "bfloat16", batch, steps)
+    cfg.TPU.DEVICE_PREPROCESS = True
+    trainer = Trainer(cfg, data)
+    hook, ends, losses = _step_end_hook(trainer)
+    trainer.hooks.append(hook)
+    torch.cuda.synchronize()
+    read = _reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = read()
+    bad = _not_finite(losses)
+    if bad:
+        raise PhaseError(f"device preprocess: non-finite losses at {bad}")
+    if counts != {k: n * steps for k, n in zip(KERNEL_NAMES, (1, 2, 2))}:
+        raise PhaseError(f"device preprocess: launches {counts}")
+    step_ms = _spacings(start, ends)
+    log(f"(d) Trainer with TPU.DEVICE_PREPROCESS, bf16, batch {batch} raw "
+        f"500x375 -> 800x1344: step ms (CUDA events) "
+        f"{[round(x, 2) for x in step_ms]}, median of the last "
+        f"{steps - 1} {statistics.median(step_ms[1:]):.2f}; launches "
+        f"{counts}")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts, {"resize_ms": ms, "step_ms": step_ms}
+
+
+# ---------------------------------------------------------------- phase 13
+STANDARD_OPTS = ("MODEL.ROI_HEADS.NAME", "StandardROIHeads",
+                 "MODEL.ROI_BOX_HEAD.NUM_FC", "2")
+STANDARD_GRADS = ("affine_rcnn.weight", "backbone.res4.0.conv3.weight",
+                  "proposal_generator.rpn_head.conv.weight",
+                  "roi_heads.box_head.fc1.weight",
+                  "roi_heads.cls_head.fc1.weight",
+                  "roi_heads.cls_predictor.cls_score.weight",
+                  "roi_heads.box_predictor.bbox_pred.weight")
+
+
+def phase_standard_heads(tmp):
+    """Phase 13 (a)-(c) and its serving path: StandardROIHeads on the
+    flagship config (two ConvFC towers of NUM_FC 2 over ROIAlign at P 7,
+    bin_stride 1 on res4's 1024 channels). Returns the training and
+    serving launches, the bf16 step numbers and the bin_stride-1 kernel
+    checks."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+    )
+
+    launches = (1, 1, 1)
+    phase_train_f32(tmp, opts=STANDARD_OPTS, grads=STANDARD_GRADS,
+                    label="StandardROIHeads f32", launches=launches)
+    per_step, counts, next_step = phase_train_bf16(
+        tmp, warmup=2, timed=5, opts=STANDARD_OPTS,
+        label="StandardROIHeads bf16", launches=launches)
+    fwd, bwd = phase_train_inputs(capture_kernel_inputs(next_step),
+                                  label="standard_train_path",
+                                  launches=launches)
+    del next_step
+    torch.cuda.empty_cache()
+
+    cfg = _cfg("bfloat16", STANDARD_OPTS)
+    pred = DefaultPredictor(cfg, seed=0)
+    images = _synthetic_images(1, 10)
+    _drive(pred, images[:1], images[2:])  # warm-up
+    read = _reset_counts()
+    res, secs, bsec = _drive(pred, images[:2], images[2:])
+    serve_counts = read()
+    _check_outputs(res, images, cfg.MODEL.ROI_HEADS.NUM_CLASSES)
+    want = {"greedy_nms": 6, "roi_align_v2_fwd": 3, "roi_align_v2_bwd": 0}
+    if serve_counts != want:
+        raise PhaseError(f"StandardROIHeads serving: launches "
+                         f"{serve_counts}, expected {want}")
+    log(f"StandardROIHeads serving, bf16: batch-1 requests "
+        f"{[round(x * 1e3, 2) for x in secs]} ms, predict_batch(8) "
+        f"{bsec * 1e3:.2f} ms; launches {serve_counts}")
+    del pred
+    torch.cuda.empty_cache()
+    return counts, serve_counts, per_step, {"fwd": fwd[0], "bwd": bwd[0]}
+
+
+def phase_remat(tmp):
+    """Phase 13 (d): one bf16 step at batch 16 with TPU.REMAT_BACKBONE on
+    the batch of a step without it, same weights and generators: the
+    losses equal, peak memory of each."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+        step_generators,
+    )
+
+    cfg = _train_cfg(os.path.join(tmp, "remat"), "bfloat16", 16, 1)
+    (images, gt), = train_batches(14, 1, 16)
+    trainer = Trainer(cfg, [(images, gt)])
+    model = trainer.model
+    images, gt = images.to("cuda"), gt.to("cuda")
+    runs = {}
+    for remat in (False, True):
+        model.backbone.remat = remat
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = model.forward_train(
+            images, gt, *step_generators(trainer.seed, 0, "cuda"))
+        sum(v for k, v in losses.items()
+            if not k.startswith("metric/")).backward()
+        torch.cuda.synchronize()
+        runs[remat] = ({k: float(v.detach()) for k, v in losses.items()},
+                       torch.cuda.max_memory_allocated() / 2**30,
+                       (time.perf_counter() - t0) * 1e3)
+    (l0, m0, t0_ms), (l1, m1, t1_ms) = runs[False], runs[True]
+    worst = max(abs(l1[k] - l0[k]) / max(abs(l0[k]), 1e-30) for k in l0)
+    if worst > TRAIN_LOSS_RTOL:
+        raise PhaseError(f"remat: losses {l1} vs {l0}")
+    log(f"(d) TPU.REMAT_BACKBONE, bf16 batch 16, one forward/backward on "
+        f"the same batch, weights and generators: losses equal (largest "
+        f"relative difference {worst:.3g}); peak memory {m1:.2f} GiB with "
+        f"remat, {m0:.2f} GiB without; {t1_ms:.1f} ms against "
+        f"{t0_ms:.1f} ms (host clock, one step each)")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"peak_gib": m1, "peak_gib_no_remat": m0, "max_rel_loss": worst}
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
@@ -2449,6 +2936,40 @@ def main(argv) -> int:
         coco_counts, coco = phase_coco(os.path.join(tmp, "coco"), tv_pth)
         text_counts, _ = phase_text(os.path.join(tmp, "text"), workflow,
                                     tv_pth, per_step, profile_dir)
+    with tempfile.TemporaryDirectory() as tmp:
+        export_counts, server_counts, serving = phase_serving(tmp,
+                                                              profile_dir)
+        dp_counts, dp = phase_device_preprocess(tmp)
+        std_counts, std_serve_counts, std_step, std_kernels = \
+            phase_standard_heads(tmp)
+        remat = phase_remat(tmp)
+    log(f"serving summary (phase 12; {card}): bf16 DefaultPredictor "
+        f"requests {[round(x, 2) for x in serving['DefaultPredictor']['request_ms']]}"
+        f" ms, predict_batch(8) "
+        f"{serving['DefaultPredictor']['batch8_images_per_s']:.2f} images/s; "
+        f"ServingPredictor requests "
+        f"{[round(x, 2) for x in serving['ServingPredictor']['request_ms']]}"
+        f" ms, predict_batch(8) "
+        f"{serving['ServingPredictor']['batch8_images_per_s']:.2f} images/s; "
+        f"export seconds a program f32 {serving['export_s_f32']}, bf16 "
+        f"{serving['export_s_bf16']}; servers "
+        f"{ {k: {m: round(v, 2) for m, v in d.items()} for k, d in serving.items() if k.startswith('server_')} }; "
+        f"device-preprocessed step ms {[round(x, 2) for x in dp['step_ms']]}")
+    log(f"StandardROIHeads summary (phase 13; {card}): bf16 step median "
+        f"{std_step['median_ms']:.2f} ms (mean {std_step['window_ms']:.2f}),"
+        f" peak {std_step['peak_gib']:.2f} GiB, beside phase 8 (b)'s "
+        f"{per_step['median_ms']:.2f} ms and {per_step['peak_gib']:.2f} GiB; "
+        f"ROIAlign at P 7, bin_stride 1 on a step's own inputs: forward "
+        f"{std_kernels['fwd']['ms']:.4f} ms (graph "
+        f"{std_kernels['fwd']['graph_ms']:.4f}, bound "
+        f"{std_kernels['fwd']['bound_ms']:.4f} by "
+        f"{std_kernels['fwd']['bound_by']}), backward "
+        f"{std_kernels['bwd']['ms']:.4f} ms (graph "
+        f"{std_kernels['bwd']['graph_ms']:.4f}, bound "
+        f"{std_kernels['bwd']['bound_ms']:.4f} by "
+        f"{std_kernels['bwd']['bound_by']}); remat peak "
+        f"{remat['peak_gib']:.2f} GiB against {remat['peak_gib_no_remat']:.2f}"
+        f" GiB without")
     pcb = workflow["pcb"]
     log(f"PCB summary (phases 9 and 10; {card}): VOC {_fmt_pcb(pcb)}; "
         f"evaluation {pcb['on_images_per_s']:.2f} images/s with PCB, "
@@ -2485,9 +3006,20 @@ def main(argv) -> int:
             "workflow_finetune_and_eval_pcb": eval_counts[name],
             "workflow_eval_pcb_off": off_counts[name],
             "coco_finetune_and_eval_pcb": coco_counts[name],
-            **{path: c[name] for path, c in text_counts.items()}}
+            **{path: c[name] for path, c in text_counts.items()},
+            "export_serving": export_counts[name],
+            "http_server": server_counts[name],
+            "device_preprocess_training": dp_counts[name],
+            "standard_roi_heads_training": std_counts[name],
+            "standard_roi_heads_serving": std_serve_counts[name]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
+        if name != "greedy_nms":  # StandardROIHeads' launch shape
+            k["bin_stride1_training"] = {
+                m: std_kernels["fwd" if name == "roi_align_v2_fwd" else
+                               "bwd"][m]
+                for m in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                          "bound_by", "max_abs_err")}
         if name == "roi_align_v2_fwd":
             k["pcb_launches_by_path"] = {
                 "workflow_finetune_and_eval_pcb": pcb["pcb_calls"],

@@ -91,20 +91,37 @@ def jax_path_to_d2(path):
             return base + ".weight", "conv"
         if p[2] == "bias":
             return base + ".bias", "plain"
-    if len(p) == 4 and p[:2] == ("roi_heads", "box_predictor") \
+    if len(p) == 4 and p[0] == "roi_heads" \
+            and p[1] in ("box_predictor", "cls_predictor") \
             and p[2] in ("cls_score", "bbox_pred"):
-        base = f"roi_heads.box_predictor.{p[2]}"
+        base = f"roi_heads.{p[1]}.{p[2]}"
         if p[3] == "kernel":
             return base + ".weight", "linear"
         if p[3] == "bias":
             return base + ".bias", "plain"
+    if len(p) == 4 and p[0] == "roi_heads" \
+            and p[1] in ("box_head", "cls_head") \
+            and re.fullmatch(r"(conv|fc)\d+", p[2]):
+        base = f"roi_heads.{p[1]}.{p[2]}"
+        if p[3] == "bias":
+            return base + ".bias", "plain"
+        if p[3] == "kernel":
+            kind = "conv" if p[2].startswith("conv") else "linear"
+            return base + ".weight", "fc_first" if p[2] == "fc1" else kind
     if len(p) == 2 and p[0] in ("affine_rpn", "affine_rcnn"):
         return f"{p[0]}.{p[1]}", "affine"
     return None, None
 
 
-def _to_torch_layout(value: np.ndarray, kind: str) -> np.ndarray:
+def _to_torch_layout(value: np.ndarray, kind: str,
+                     first_fc_channels: int = 0) -> np.ndarray:
     v = np.asarray(value, np.float32)
+    if kind == "fc_first":
+        # flax flattens the pooled map (P, P, C), torch (C, P, P)
+        c = first_fc_channels
+        p = math.isqrt(v.shape[0] // c)
+        return v.reshape(p, p, c, -1).transpose(3, 2, 0, 1).reshape(
+            v.shape[1], c * p * p)
     if kind == "conv":
         return v.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if kind == "linear":
@@ -122,6 +139,16 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (key,), value
 
 
+def _first_fc_channels(params: Mapping, tower: str) -> int:
+    """Channels of the map a StandardROIHeads tower's first fc flattens:
+    its last conv's, else res4's (the RPN conv's input)."""
+    convs = sorted((k for k in params["roi_heads"][tower]
+                    if k.startswith("conv")), key=lambda k: int(k[4:]))
+    if convs:
+        return np.shape(params["roi_heads"][tower][convs[-1]]["kernel"])[-1]
+    return np.shape(params["rpn_head"]["conv"]["kernel"])[2]
+
+
 def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """The flax param tree of a JAX meta-arch (nested dicts of numpy
     arrays) -> this package's ``state_dict`` (float32 tensors). Raises on a
@@ -132,8 +159,9 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
         if name is None:
             unknown.append("/".join(map(str, path)))
             continue
+        c = _first_fc_channels(params, path[1]) if kind == "fc_first" else 0
         state[name] = torch.from_numpy(
-            np.array(_to_torch_layout(value, kind), order="C"))
+            np.array(_to_torch_layout(value, kind, c), order="C"))
     if unknown:
         raise ValueError(f"parameters with no PyTorch name: {unknown}")
     return state
@@ -148,17 +176,17 @@ def _he_fan_out_(w: torch.Tensor, gen: torch.Generator):
 
 
 def _lecun_normal_(w: torch.Tensor, gen: torch.Generator):
-    """flax's default Dense draw (``lecun_normal``): a normal truncated at
-    +-2 std, rescaled to variance 1 / fan_in."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    """flax's default Dense and Conv draw (``lecun_normal``): a normal
+    truncated at +-2 std, rescaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / math.prod(w.shape[1:])) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
 # weights of the text meta-archs and heads that flax draws with its default
 # Dense initialiser (the attention modules draw their own)
 _LECUN = re.compile(r"(^|\.)(mlp_adapter\.\d+|output_projection|sem2vis_proj"
-                    r"|vis2sem_res\d|to_rpn_input_proj|LtoVproj|attproj)"
-                    r"\.weight$")
+                    r"|vis2sem_res\d|to_rpn_input_proj|LtoVproj|attproj"
+                    r"|(box|cls)_head\.(conv|fc)\d+)\.weight$")
 
 
 @torch.no_grad()

@@ -108,6 +108,11 @@ def _stack_batch(items: List[Dict], pin_memory: bool = False):
         "file_names": [it.get("file_name") for it in items],
         "valid_count": sum(1 for it in items if not it.get("_pad", False)),
     }
+    if "short" in items[0]:  # TPU.DEVICE_PREPROCESS: the resize's draws
+        meta["short"] = np.asarray([it["short"] for it in items], np.float32)
+        meta["flip"] = np.asarray([it["flip"] for it in items], bool)
+        meta["target_hw"] = items[0]["target_hw"]
+        meta["max_size"] = items[0]["max_size"]
     return images, gt, meta
 
 

@@ -10,8 +10,10 @@ to ``TPU.MAX_GT`` slots, so that batches come in a few fixed shapes.
 
 The JAX package's ``TPU.HOST_SPACE_TO_DEPTH`` (a layout for its
 space-to-depth stem) has no counterpart: this package's stem is a plain
-7x7/2 convolution. ``TPU.DEVICE_PREPROCESS`` is ROADMAP.md Queue 1 item 14.
-PIL is imported where an image is read, not with this module.
+7x7/2 convolution. With ``TPU.DEVICE_PREPROCESS`` the mapper emits the raw
+pixels in a source bucket and leaves the resize and the flip to the device
+(``data/device_preprocess.py``). PIL is imported where an image is read,
+not with this module.
 """
 
 from __future__ import annotations
@@ -135,6 +137,8 @@ class DatasetMapper:
         native_io: bool = True,
         sampling: str = "choice",
         crop=None,
+        device_preprocess: bool = False,
+        raw_buckets: Sequence[Tuple[int, int]] = (),
     ):
         self.is_train = is_train
         self.min_sizes = (
@@ -158,6 +162,11 @@ class DatasetMapper:
         self.image_format = image_format
         self.random_flip = random_flip and is_train
         self.native_io = native_io
+        # TPU.DEVICE_PREPROCESS: emit raw pixels in a source bucket
+        # (``raw_buckets``, else ``buckets``) and the resize plan; the
+        # resize and flip run on the device (data/device_preprocess.py)
+        self.device_preprocess = device_preprocess
+        self.raw_buckets = list(raw_buckets)
         # INPUT.CROP: (type, size) or None; train only, before the resize
         self.crop = None
         if crop is not None and is_train:
@@ -173,16 +182,12 @@ class DatasetMapper:
     @classmethod
     def from_config(cls, cfg, is_train: bool):
         """The mapper of the train or test loader for ``cfg``."""
-        if cfg.TPU.DEVICE_PREPROCESS:
-            raise NotImplementedError(
-                "TPU.DEVICE_PREPROCESS = True is not ported to the PyTorch "
-                "package yet: ROADMAP.md Queue 1 item 14 (on-device "
-                "preprocessing)"
-            )
         common = dict(
             max_gt=cfg.TPU.MAX_GT, buckets=cfg.TPU.IMAGE_BUCKETS,
             image_format=cfg.INPUT.FORMAT,
             native_io=cfg.DATALOADER.NATIVE_IO,
+            device_preprocess=cfg.TPU.DEVICE_PREPROCESS,
+            raw_buckets=cfg.TPU.RAW_BUCKETS,
         )
         if not is_train:
             return cls(False, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST,
@@ -227,12 +232,17 @@ class DatasetMapper:
         flip = bool(self.random_flip and rng.rand() < 0.5)
         nh, nw = resize_shortest_edge_size(ch, cw, short, self.max_size)
         bucket = pick_bucket(nh, nw, self.buckets)
+        if self.device_preprocess:  # (source bucket, target bucket)
+            bucket = (*pick_bucket(ch, cw, self.raw_buckets or self.buckets),
+                      *bucket)
         return {"short": short, "flip": flip, "bucket": bucket, "crop": crop}
 
     def __call__(self, record: Dict, rng: np.random.RandomState,
                  plan: Dict = None):
         if plan is None:
             plan = self.plan(record, rng)
+        if self.device_preprocess:
+            return self._call_raw(record, plan)
         return self._call_host(record, plan)
 
     @staticmethod
@@ -246,6 +256,73 @@ class DatasetMapper:
                 f"smaller than the planned crop {tuple(cropplan)} — fix "
                 f"the dataset's height/width fields"
             )
+
+    def _gt_arrays(self, boxes, classes):
+        g = self.max_gt
+        gt_boxes = np.zeros((g, 4), np.float32)
+        gt_classes = np.zeros((g,), np.int32)
+        gt_valid = np.zeros((g,), bool)
+        n = min(len(boxes), g)
+        gt_boxes[:n] = boxes[:n]
+        gt_classes[:n] = classes[:n]
+        gt_valid[:n] = True
+        return gt_boxes, gt_classes, gt_valid
+
+    def _call_raw(self, record: Dict, plan: Dict):
+        """TPU.DEVICE_PREPROCESS: the raw pixels (cropped on the host, a
+        free uint8 slice) zero-padded into their source bucket, the resized
+        size as ``hw``, the crop extent as ``orig_hw``, the GT boxes as the
+        device's resize and flip will place them, and the draws."""
+        from .device_preprocess import scale_boxes
+
+        img, _ = _open_oriented(record["file_name"])
+        arr = np.asarray(img.convert("RGB"), np.uint8)
+        h0, w0 = arr.shape[:2]
+        if self.image_format == "BGR":
+            arr = arr[:, :, ::-1]
+        annos = record.get("annotations", [])
+        boxes = np.array([a["bbox"] for a in annos], np.float32).reshape(-1, 4)
+        classes = np.array(
+            [a["category_id"] for a in annos], np.int64).reshape(-1)
+        cropplan = plan.get("crop")
+        if cropplan is not None:
+            self._check_crop_fits(record, cropplan, h0, w0)
+            y0, x0, ch, cw = cropplan
+            arr = arr[y0: y0 + ch, x0: x0 + cw]
+            h0, w0 = ch, cw
+            if len(boxes):
+                boxes = crop_boxes(boxes, y0, x0, ch, cw)
+        short, flip = plan["short"], plan["flip"]
+        nh, nw = resize_shortest_edge_size(h0, w0, short, self.max_size)
+        if len(boxes):
+            boxes = scale_boxes(boxes, (h0, w0), (nh, nw), flip)
+            keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
+            boxes, classes = boxes[keep], classes[keep]
+        rbh, rbw = pick_bucket(h0, w0, self.raw_buckets or self.buckets)
+        tbh, tbw = pick_bucket(nh, nw, self.buckets)
+        if plan["bucket"] != (rbh, rbw, tbh, tbw):
+            raise ValueError(
+                f"{record['file_name']}: decoded size ({h0}, {w0}) maps to "
+                f"bucket {(rbh, rbw, tbh, tbw)} but the record metadata "
+                f"planned {plan['bucket']} — fix the dataset's height/width")
+        raw = np.zeros((rbh, rbw, 3), np.uint8)
+        raw[:h0, :w0] = arr
+        gt_boxes, gt_classes, gt_valid = self._gt_arrays(boxes, classes)
+        return {
+            "image": raw,
+            "hw": np.array([nh, nw], np.int32),
+            "orig_hw": np.array([h0, w0], np.int32),
+            "bucket": (rbh, rbw, tbh, tbw),
+            "target_hw": (tbh, tbw),
+            "short": np.float32(short),
+            "max_size": self.max_size,
+            "flip": flip,
+            "gt_boxes": gt_boxes,
+            "gt_classes": gt_classes,
+            "gt_valid": gt_valid,
+            "image_id": record.get("image_id"),
+            "file_name": record.get("file_name"),
+        }
 
     def _call_host(self, record: Dict, plan: Dict):
         from PIL import Image
@@ -322,15 +399,7 @@ class DatasetMapper:
         keep = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
         boxes, classes = boxes[keep], classes[keep]
 
-        g = self.max_gt
-        gt_boxes = np.zeros((g, 4), np.float32)
-        gt_classes = np.zeros((g,), np.int32)
-        gt_valid = np.zeros((g,), bool)
-        n = min(len(boxes), g)
-        gt_boxes[:n] = boxes[:n]
-        gt_classes[:n] = classes[:n]
-        gt_valid[:n] = True
-
+        gt_boxes, gt_classes, gt_valid = self._gt_arrays(boxes, classes)
         return {
             "image": padded,
             "hw": np.array([h, w], np.int32),

@@ -16,8 +16,13 @@ passes; ``device_batches`` copies each to the device as the loop takes
 it, on a stream of its own on CUDA. It logs every 20 iterations ("iter N" lines, metrics.json), saves
 every ``SOLVER.CHECKPOINT_PERIOD`` steps and ``model_final`` at the end,
 resumes the iteration, optimizer and scheduler from the newest checkpoint,
-and on SIGTERM saves and stops. Multi-device training and on-device
-preprocessing are not in this package yet and their options raise.
+and on SIGTERM saves and stops. A batch of the device-preprocessing loader
+(TPU.DEVICE_PREPROCESS: raw pixels and the resize's draws in its meta) is
+resized on the device first. TPU.DEBUG_NANS checks each step's losses and
+gradients and raises ``FloatingPointError`` on the first non-finite one;
+TPU.PROFILE_START_STEP / PROFILE_NUM_STEPS trace a window of steps with
+``torch.profiler`` into OUTPUT_DIR/profile. Multi-device training is not
+in this package yet and its options raise.
 """
 
 from __future__ import annotations
@@ -35,22 +40,21 @@ from ..checkpoint import (
     init_weights,
     maybe_load_reference_weights,
 )
+from ..data.device_preprocess import preprocess_batch
 from ..data.loader import build_detection_train_loader, device_batches
 from ..models import build_model
 from ..solver import build_gradient_clipper, build_optimizer, build_scheduler
 from ..utils.events import MetricsLogger
 from .predictor import resolve_device
 
-# options of the JAX trainer that this package does not have yet:
+# options of the JAX trainer that this package does not have:
 # (key, the value that is honoured, where ROADMAP.md puts the rest)
 _NOT_PORTED = (
-    ("TPU.DEVICE_PREPROCESS", False,
-     "Queue 1 item 14 (on-device preprocessing)"),
     ("TPU.MODEL_PARALLEL", 1, "Queue 1 item 15 (multi-device)"),
     ("TPU.SPATIAL_PARTITION", 1, "Queue 1 item 15 (multi-device)"),
-    ("TPU.CHECKPOINT_BACKEND", "pickle", "Queue 1 item 8 (orbax checkpoints)"),
-    ("TPU.DEBUG_NANS", False, "Queue 1 item 8 (NaN debugging)"),
-    ("TPU.PROFILE_START_STEP", -1, "Queue 1 item 8 (training profiles)"),
+    ("TPU.CHECKPOINT_BACKEND", "pickle",
+     "Queue 1 item 8 (orbax is a JAX library: orbax checkpoints stay "
+     "refused)"),
 )
 
 
@@ -86,14 +90,35 @@ def step_generators(seed: int, step: int, device):
             torch.Generator(device=device).manual_seed(int(b)))
 
 
-def make_train_step(model, optimizer, scheduler=None, clip=None,
-                    seed: int = 0):
-    """Returns ``train_step(images, gt, step) -> losses``: one SGD step of
-    ``model`` on a batch already on the model's device; the losses come back
-    detached, with ``total_loss``."""
-    params = [p for g in optimizer.param_groups for p in g["params"]]
+def check_finite(step: int, losses, named_params) -> None:
+    """Raise ``FloatingPointError`` naming ``step`` and the losses and
+    gradients that hold a NaN or an infinity (one host sync when all are
+    finite)."""
+    tensors = list(losses.items()) + [
+        (f"grad of {n}", p.grad) for n, p in named_params
+        if p.grad is not None]
+    if bool(torch.stack([torch.isfinite(t).all() for _, t in tensors]).all()):
+        return
+    bad = [name for name, t in tensors if not bool(torch.isfinite(t).all())]
+    raise FloatingPointError(
+        f"step {step}: non-finite {', '.join(bad[:8])}"
+        + (f" and {len(bad) - 8} more" if len(bad) > 8 else ""))
 
-    def train_step(images, gt, step: int):
+
+def make_train_step(model, optimizer, scheduler=None, clip=None,
+                    seed: int = 0, debug_nans: bool = False):
+    """Returns ``train_step(images, gt, step, meta=None) -> losses``: one
+    SGD step of ``model`` on a batch already on the model's device; the
+    losses come back detached, with ``total_loss``. A raw batch of the
+    device-preprocessing loader (``meta`` with its ``target_hw``) is
+    resized on the device first. ``debug_nans`` checks the losses and
+    gradients before the update (``check_finite``)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    named = list(model.named_parameters())
+
+    def train_step(images, gt, step: int, meta=None):
+        if meta is not None and "target_hw" in meta:
+            images = preprocess_batch(images, meta)
         device = images.image.device
         sampling, dropout = step_generators(seed, step, device)
         losses = model.forward_train(images, gt, sampling, dropout)
@@ -101,6 +126,8 @@ def make_train_step(model, optimizer, scheduler=None, clip=None,
                     if not k.startswith("metric/"))
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if debug_nans:
+            check_finite(step, {**losses, "total_loss": total}, named)
         if clip is not None:
             clip(params)
         optimizer.step()
@@ -146,7 +173,8 @@ class Trainer:
         self.scheduler = build_scheduler(cfg, self.optimizer)
         self.train_step = make_train_step(
             self.model, self.optimizer, self.scheduler,
-            build_gradient_clipper(cfg), self.seed)
+            build_gradient_clipper(cfg), self.seed,
+            debug_nans=cfg.TPU.DEBUG_NANS)
         self.checkpointer = Checkpointer(cfg.OUTPUT_DIR)
         self.metrics = MetricsLogger(cfg.OUTPUT_DIR)
         self.start_iter = 0
@@ -202,10 +230,17 @@ class Trainer:
         except ValueError:  # not the main thread: no handler
             prev = None
         losses, it, t_last = {}, self.start_iter, time.time()
+        profile_start = cfg.TPU.PROFILE_START_STEP
+        profile_stop = profile_start + cfg.TPU.PROFILE_NUM_STEPS
+        # a resume can land inside the window: only a trace this run
+        # started is stopped
+        profiler, done = None, it - 1
         try:
             while it < self.max_iter:
-                images, gt, _ = next(batches)
-                losses = self.train_step(images, gt, it)
+                if it == profile_start:
+                    profiler = self._start_profile()
+                images, gt, meta = next(batches)
+                losses = self.train_step(images, gt, it, meta)
                 self.last_losses = losses
                 if it % 20 == 0 or it == self.max_iter - 1:
                     now = time.time()
@@ -219,6 +254,10 @@ class Trainer:
                     self.save(it)
                 for hook in self.hooks:
                     hook(it)
+                done = it
+                if profiler is not None and it + 1 == profile_stop:
+                    self._stop_profile(profiler, it)
+                    profiler = None
                 if self.preempted:
                     # a consistent post-step state: resume starts at it + 1
                     self.save(it)
@@ -227,6 +266,8 @@ class Trainer:
             if not self.preempted:
                 self.save(self.max_iter - 1, name="model_final")
         finally:
+            if profiler is not None:  # the window ran past the last step
+                self._stop_profile(profiler, done)
             if prev is not None:
                 signal.signal(signal.SIGTERM, prev)
             batches.close()
@@ -234,6 +275,26 @@ class Trainer:
                 loader.close()
             self.checkpointer.wait()
         return losses
+
+    def _start_profile(self):
+        """A started ``torch.profiler`` of the host and, on CUDA, the
+        card."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
+        return profiler
+
+    def _stop_profile(self, profiler, last_step: int) -> None:
+        """Stop ``profiler`` and write its trace under OUTPUT_DIR/profile."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out = os.path.join(self.cfg.OUTPUT_DIR, "profile")
+        os.makedirs(out, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(
+            out, f"trace_to_iter_{last_step:07d}.json"))
 
     def save(self, iteration: int, name=None) -> None:
         state = {"model": self.model.state_dict(),

@@ -2,7 +2,8 @@
 ``evaluation/evaluator.py`` (ref defrcn/evaluation/evaluator.py:82-162).
 
 Batches reach the model's device through ``device_batches`` (on CUDA,
-copies on their own stream from page-locked memory). The model runs under
+copies on their own stream from page-locked memory); a raw batch of the
+device-preprocessing loader (TPU.DEVICE_PREPROCESS) is resized there. The model runs under
 ``torch.inference_mode()``; each batch's detections come to the host in one
 copy per field, and the padded tail of a bucket group
 (``meta['valid_count']``) is dropped before the evaluator sees it. Timing
@@ -31,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from ..data.device_preprocess import preprocess_batch
 from ..data.loader import device_batches
 
 logger = logging.getLogger(__name__)
@@ -79,6 +81,8 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
     try:
         with torch.inference_mode():
             for k, (images, gt, meta) in enumerate(batches):
+                if "target_hw" in meta:  # TPU.DEVICE_PREPROCESS
+                    images = preprocess_batch(images, meta)
                 det = model.forward_inference(images,
                                               gt if feed_gt else None)
                 n = meta.get("valid_count", images.image.shape[0])

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # ResNet stage specs: depth -> blocks per stage (res2, res3, res4, res5).
 RESNET_STAGES = {
@@ -125,13 +126,18 @@ class Stem(nn.Module):
 
 class ResNetC4(nn.Module):
     """Stem + res2..res4 (stride 16 output), the RPN and ROI trunk.
-    ``forward`` returns {"res2", "res3", "res4"} (B, C, H, W) maps."""
+    ``forward`` returns {"res2", "res3", "res4"} (B, C, H, W) maps. With
+    ``remat`` (TPU.REMAT_BACKBONE) each trainable stage keeps only its
+    input for the backward pass and recomputes the rest there
+    (``torch.utils.checkpoint``): the same losses and gradients, less
+    memory."""
 
     def __init__(self, depth=101, stem_out_channels=64, res2_out_channels=256,
                  num_groups=1, width_per_group=64, stride_in_1x1=True,
-                 freeze_at=0, dtype=torch.float32):
+                 freeze_at=0, remat=False, dtype=torch.float32):
         super().__init__()
         self.freeze_at = freeze_at
+        self.remat = remat
         self.dtype = dtype
         self.stem = Stem(stem_out_channels)
         blocks = RESNET_STAGES[depth]
@@ -156,8 +162,13 @@ class ResNetC4(nn.Module):
             x = self.stem(x.to(self.dtype))
         feats = {}
         for idx, name in enumerate(self.stage_names):
-            with torch.set_grad_enabled(grad and self.freeze_at < idx + 2):
-                x = getattr(self, name)(x)
+            trains = grad and self.freeze_at < idx + 2
+            stage = getattr(self, name)
+            with torch.set_grad_enabled(trains):
+                if self.remat and trains:
+                    x = checkpoint(stage, x, use_reentrant=False)
+                else:
+                    x = stage(x)
             feats[name] = x
         return feats
 

@@ -2,14 +2,15 @@
 
 Counterpart of the JAX package's ``models/build.py``: MODEL.META_ARCHITECTURE
 picks ``GeneralizedRCNN`` or a text-family meta-arch of ``text_heads.py``,
-MODEL.ROI_HEADS.NAME its ROI head (``Res5ROIHeads``, the Sematic and Text
-heads) and OUTPUT_LAYER its predictor. Every model but the plain
-``GeneralizedRCNN`` + ``Res5ROIHeads`` gets the class-embedding bank of
+MODEL.ROI_HEADS.NAME its ROI head (``Res5ROIHeads``, ``StandardROIHeads``,
+the Sematic and Text heads) and OUTPUT_LAYER its predictor. Every model but
+the plain ``GeneralizedRCNN`` with ``Res5ROIHeads`` or ``StandardROIHeads``
+gets the class-embedding bank of
 DATASETS.TRAIN's classes (MODEL.ADDITION.NAME, GloVe by default, read under
 MODEL.ADDITION.EMBEDDING_PATH; synthetic vectors where no file is there)
-and a background vector orthogonal to its mean. StandardROIHeads and
-TPU.REMAT_BACKBONE raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+and a background vector orthogonal to its mean. StandardROIHeads takes
+its towers from MODEL.ROI_BOX_HEAD; TPU.REMAT_BACKBONE recomputes the
+trainable backbone stages in the backward pass.
 """
 
 from __future__ import annotations
@@ -41,12 +42,6 @@ _FIXED_AT_DEFAULT = (
     ("TEST.AUG.ENABLED", False),
 )
 
-# where ROADMAP.md puts the names the JAX package builds and this package
-# does not have yet
-_LATER = {
-    "StandardROIHeads": "Queue 1 item 13 (StandardROIHeads)",
-    "TPU.REMAT_BACKBONE": "Queue 1 item 8 (training: activation recompute)",
-}
 _OUTPUT_LAYERS = ("FastRCNNOutputLayers", "FastRCNNAttentionOutputLayers")
 
 
@@ -57,18 +52,11 @@ def _get(cfg, dotted):
     return tuple(node) if isinstance(node, (list, tuple)) else node
 
 
-def _not_ported(what: str, name: str):
-    return NotImplementedError(
-        f"{what} {name!r} is not ported to the PyTorch package yet: "
-        f"ROADMAP.md {_LATER[name]}"
-    )
-
-
 def _text_head_kwargs(cfg):
     """The class-embedding bank (C, dim) and the background vector (1, dim)
-    orthogonal to its mean, for every model but the plain GeneralizedRCNN +
-    Res5ROIHeads."""
-    if (cfg.MODEL.ROI_HEADS.NAME == "Res5ROIHeads"
+    orthogonal to its mean, for every model but the plain GeneralizedRCNN
+    with Res5ROIHeads or StandardROIHeads."""
+    if (cfg.MODEL.ROI_HEADS.NAME in ("Res5ROIHeads", "StandardROIHeads")
             and cfg.MODEL.META_ARCHITECTURE == "GeneralizedRCNN"):
         return {}
     from ..utils.class_embedding import (
@@ -113,13 +101,9 @@ def build_model(cfg):
     if meta != "GeneralizedRCNN" and meta not in META_ARCHS:
         raise KeyError(f"Unknown META_ARCHITECTURE {meta!r}; have "
                        f"{sorted(['GeneralizedRCNN', *META_ARCHS])}")
-    if cfg.MODEL.ROI_HEADS.NAME in _LATER:
-        raise _not_ported("ROI_HEADS.NAME", cfg.MODEL.ROI_HEADS.NAME)
     if cfg.MODEL.ROI_HEADS.OUTPUT_LAYER not in _OUTPUT_LAYERS:
         raise KeyError(f"Unknown ROI_HEADS.OUTPUT_LAYER "
                        f"{cfg.MODEL.ROI_HEADS.OUTPUT_LAYER!r}")
-    if cfg.TPU.REMAT_BACKBONE:
-        raise _not_ported("training option", "TPU.REMAT_BACKBONE")
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         cfg.TPU.COMPUTE_DTYPE]
     freeze_at = 4 if cfg.MODEL.BACKBONE.FREEZE else cfg.MODEL.BACKBONE.FREEZE_AT
@@ -178,6 +162,11 @@ def build_model(cfg):
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         pixel_std=tuple(cfg.MODEL.PIXEL_STD),
         roi_heads_name=roi.NAME,
+        box_convfc=(cfg.MODEL.ROI_BOX_HEAD.NUM_CONV,
+                    cfg.MODEL.ROI_BOX_HEAD.CONV_DIM,
+                    cfg.MODEL.ROI_BOX_HEAD.NUM_FC,
+                    cfg.MODEL.ROI_BOX_HEAD.FC_DIM),
+        remat_backbone=cfg.TPU.REMAT_BACKBONE,
         output_layer=roi.OUTPUT_LAYER,
         l2_cosine=roi.L2_COSINE,
         kl_temp=float(roi.KL_TEMP),

@@ -9,7 +9,7 @@ detectron2's state dict (``backbone``, ``proposal_generator.rpn_head``,
 ``roi_heads``, ``affine_rpn``, ``affine_rcnn``).
 
 The ROI head is chosen by ``roi_heads_name`` (MODEL.ROI_HEADS.NAME):
-``Res5ROIHeads``, or a text-family head of ``text_heads.py`` with the class
+``Res5ROIHeads``, ``StandardROIHeads`` (``box_head.py``), or a text-family head of ``text_heads.py`` with the class
 bank. The text meta-archs there reuse this skeleton: ``compute_features``
 takes the GT they paint, ``_train_tail`` their extra losses, and
 ``eval_gt_role`` says what GT handed to ``forward_inference`` means.
@@ -87,6 +87,7 @@ class GeneralizedRCNN(nn.Module):
         stride_in_1x1: bool = True,
         elide_strided_bins: bool = True,
         freeze_at: int = 3,
+        remat_backbone: bool = False,
         freeze_backbone: bool = False,
         freeze_rpn: bool = False,
         anchor_sizes: Tuple[int, ...] = (32, 64, 128, 256, 512),
@@ -122,6 +123,7 @@ class GeneralizedRCNN(nn.Module):
         pixel_mean: Tuple[float, ...] = (103.530, 116.280, 123.675),
         pixel_std: Tuple[float, ...] = (1.0, 1.0, 1.0),
         roi_heads_name: str = "Res5ROIHeads",
+        box_convfc: Tuple[int, int, int, int] = (0, 256, 2, 1024),
         output_layer: str = "FastRCNNOutputLayers",
         class_embed=None,
         bg_embed=None,
@@ -172,7 +174,7 @@ class GeneralizedRCNN(nn.Module):
             depth=depth, stem_out_channels=stem_out_channels,
             res2_out_channels=res2_out_channels,
             width_per_group=width_per_group, stride_in_1x1=stride_in_1x1,
-            freeze_at=freeze_at, dtype=dtype,
+            freeze_at=freeze_at, remat=remat_backbone, dtype=dtype,
         )
         c4 = res2_out_channels * 4
         num_anchors = len(self.anchor_sizes) * len(self.anchor_aspect_ratios)
@@ -197,13 +199,30 @@ class GeneralizedRCNN(nn.Module):
                  dtype=dtype),
             dict(class_embed=class_embed, bg_embed=bg_embed,
                  l2_cosine=l2_cosine, kl_temp=kl_temp,
-                 distill_l2=distill_l2, distill_kl=distill_kl))
+                 distill_l2=distill_l2, distill_kl=distill_kl),
+            box_convfc)
 
     @staticmethod
-    def build_roi_heads(name: str, common: dict, text: dict):
-        """MODEL.ROI_HEADS.NAME -> the ROI head (ref ROI_HEADS_REGISTRY)."""
+    def build_roi_heads(name: str, common: dict, text: dict,
+                        box_convfc=(0, 256, 2, 1024)):
+        """MODEL.ROI_HEADS.NAME -> the ROI head (ref ROI_HEADS_REGISTRY);
+        ``box_convfc`` is StandardROIHeads' (NUM_CONV, CONV_DIM, NUM_FC,
+        FC_DIM) of MODEL.ROI_BOX_HEAD."""
         if name == "Res5ROIHeads":
             return Res5ROIHeads(**common)
+        if name == "StandardROIHeads":
+            from .box_head import StandardROIHeads
+
+            num_conv, conv_dim, num_fc, fc_dim = box_convfc
+            return StandardROIHeads(
+                num_classes=common["num_classes"],
+                in_channels=common["res2_out_channels"] * 4,
+                pooler_resolution=common["pooler_resolution"],
+                sampling_ratio=common["sampling_ratio"], num_conv=num_conv,
+                conv_dim=conv_dim, num_fc=num_fc, fc_dim=fc_dim,
+                cls_agnostic_bbox_reg=common["cls_agnostic_bbox_reg"],
+                cls_dropout=common["cls_dropout"],
+                dropout_ratio=common["dropout_ratio"], dtype=common["dtype"])
         from .text_heads import SematicRes5ROIHeads, TextRes5ROIHeads
 
         if name in ("SematicRes5ROIHeads", "SematicRes5ROIHeadsCrossOutput"):

@@ -11,6 +11,7 @@ from .gdl import decouple_layer
 from .matcher import match_proposals
 from .nms import batched_nms_fixed, nms_auto, nms_fixed, top_k
 from .roi_align import roi_align, roi_align_plain, roi_sample_geometry
+from . import custom_ops  # noqa: F401  (registers the fsod:: operators)
 from .sampler import sample_proposals_fixed, subsample_labels
 
 __all__ = [

@@ -35,3 +35,11 @@ def use_kernel(t: torch.Tensor) -> bool:
     if t.is_cuda:
         return _plain_depth == 0
     raise NotImplementedError(f"no kernel for device {t.device}")
+
+
+def use_operator(t: torch.Tensor) -> bool:
+    """True when ``t`` goes through an ``fsod::`` operator
+    (``ops/custom_ops.py``: the kernel on CUDA, the plain version on the
+    CPU); False inside ``plain_ops()`` on CUDA, where the caller runs the
+    plain version itself."""
+    return t.device.type == "cpu" or use_kernel(t)

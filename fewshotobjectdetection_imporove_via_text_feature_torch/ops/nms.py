@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from .box_ops import pairwise_iou
-from .dispatch import use_kernel
+from .dispatch import use_operator
 
 TILE = 128
 
@@ -108,13 +108,15 @@ def tiles_visited(keep: torch.Tensor, max_keep: int | None = None):
 
 
 def _sorted_nms(boxes, valid, iou_threshold, max_keep):
-    """Device switch (``ops.dispatch``): the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
-    if use_kernel(boxes):
-        from .nms_cuda import nms_sorted_cuda
-
-        return nms_sorted_cuda(boxes, valid, iou_threshold, max_keep)
-    return nms_sorted_plain(boxes, valid, iou_threshold, max_keep)
+    """Device switch (``ops.dispatch``): the ``fsod::nms_sorted`` operator
+    (``ops/custom_ops.py``), which launches the CUDA kernel for a CUDA
+    tensor and runs the plain version for a CPU tensor; the plain version
+    on CUDA inside ``plain_ops()``."""
+    if not use_operator(boxes):
+        return nms_sorted_plain(boxes, valid, iou_threshold, max_keep)
+    return torch.ops.fsod.nms_sorted(
+        boxes, valid, float(iou_threshold),
+        -1 if max_keep is None else int(max_keep))
 
 
 def _nms(boxes, scores, valid, iou_threshold, assume_sorted, max_keep,

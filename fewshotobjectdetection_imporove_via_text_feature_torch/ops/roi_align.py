@@ -3,8 +3,10 @@ the device switch.
 
 Counterpart of the JAX package's ``ops/roi_align.py`` (``roi_sample_geometry``)
 and ``ops/roi_align_mxu.py`` (the interpolation-matrix form, the JAX
-default). ``roi_align_plain`` is the plain version of the CUDA kernel in
-``ops/roi_align_cuda.py``; ``roi_align`` picks one of them by device.
+default). ``roi_align_plain`` is the plain version of the CUDA kernels in
+``ops/roi_align_cuda.py``, its gradient ``roi_align_backward_plain`` that
+of the backward kernel; ``roi_align`` picks the kernels or the plain
+versions by device, through the ``fsod::roi_align`` operator.
 
 Semantics (the JAX package's, detectron2's ROIAlignV2 with its documented
 deviations):
@@ -30,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from .dispatch import use_kernel
+from .dispatch import use_operator
 
 
 class ROISampleGeometry(NamedTuple):
@@ -119,26 +121,31 @@ def _interp_matrix(start, bin_size, grid, wsamp, size: int, p_out: int,
     return w.sum(dim=2)
 
 
-def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor,
-                    output_size: int = 7, spatial_scale: float = 1.0 / 16.0,
-                    sampling_ratio: int = 0,
-                    bin_stride: int = 1) -> torch.Tensor:
-    """Interpolation-matrix ROIAlign, the plain version of the kernel:
-    ``out[r] = Wy[r] @ F @ Wx[r]^T`` in float32, contracting the longer
-    spatial axis first."""
-    b, _, h, w = features.shape
+def _interp_weights(boxes: torch.Tensor, feature_shape, output_size: int,
+                    spatial_scale: float, sampling_ratio: int,
+                    bin_stride: int):
+    """The averaged bilinear weights of boxes (B, S, 4) on a map of
+    ``feature_shape`` (B, C, H, W): Wy (B, S, P', H) and Wx (B, S, P', W),
+    float32."""
+    b, _, h, w = feature_shape
     s = boxes.shape[1]
     geo = roi_sample_geometry(
         boxes.reshape(-1, 4), spatial_scale, output_size, sampling_ratio,
         bin_stride, feat_hw=(h, w),
     )
     p_out = geo.p_out
-    # S = 0 takes the same path: an empty output that autograd still links
-    # to the features (their gradient is then 0)
     wy = _interp_matrix(geo.y1, geo.bin_h, geo.grid_y, geo.wy, h, p_out,
                         geo.sy).reshape(b, s, p_out, h)
     wx = _interp_matrix(geo.x1, geo.bin_w, geo.grid_x, geo.wx, w, p_out,
                         geo.sx).reshape(b, s, p_out, w)
+    return wy, wx
+
+
+def _roi_align_plain_forward(features, boxes, output_size, spatial_scale,
+                             sampling_ratio, bin_stride):
+    h, w = features.shape[2:]
+    wy, wx = _interp_weights(boxes, features.shape, output_size,
+                             spatial_scale, sampling_ratio, bin_stride)
     acc = torch.promote_types(features.dtype, torch.float32)
     feat = features.to(acc)
     wy, wx = wy.to(acc), wx.to(acc)
@@ -152,18 +159,79 @@ def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor,
     return out.to(features.dtype)
 
 
+def roi_align_backward_plain(grad: torch.Tensor, boxes: torch.Tensor,
+                             feature_shape, output_size: int = 7,
+                             spatial_scale: float = 1.0 / 16.0,
+                             sampling_ratio: int = 0,
+                             bin_stride: int = 1) -> torch.Tensor:
+    """The gradient of ROIAlign to features of ``feature_shape`` (B, C,
+    H, W): ``Wy[r]^T @ G[r] @ Wx[r]`` summed over the ROIs in float32
+    (float64 for a float64 grad), rounded once to grad's dtype; the plain
+    version of the backward kernel. The contractions run in the reverse
+    order of the forward's."""
+    h, w = feature_shape[2:]
+    wy, wx = _interp_weights(boxes, feature_shape, output_size,
+                             spatial_scale, sampling_ratio, bin_stride)
+    acc = torch.promote_types(grad.dtype, torch.float32)
+    g = grad.to(acc)
+    wy, wx = wy.to(acc), wx.to(acc)
+    if w >= h:
+        t = torch.einsum("brph,brcpq->brqch", wy, g)
+        out = torch.einsum("brqw,brqch->bchw", wx, t)
+    else:
+        t = torch.einsum("brqw,brcpq->brpcw", wx, g)
+        out = torch.einsum("brph,brpcw->bchw", wy, t)
+    return out.to(grad.dtype)
+
+
+class _PlainROIAlign(torch.autograd.Function):
+    """``_roi_align_plain_forward`` with ``roi_align_backward_plain`` as its
+    backward: the plain pair states what the kernel pair computes. The
+    gradient goes to the features (the boxes are detached proposals)."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, output_size, spatial_scale,
+                sampling_ratio, bin_stride):
+        ctx.save_for_backward(boxes)
+        ctx.args = (tuple(features.shape), output_size, spatial_scale,
+                    sampling_ratio, bin_stride)
+        return _roi_align_plain_forward(features, boxes, output_size,
+                                        spatial_scale, sampling_ratio,
+                                        bin_stride)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (boxes,) = ctx.saved_tensors
+        grad_features = None
+        if ctx.needs_input_grad[0]:
+            grad_features = roi_align_backward_plain(grad, boxes, *ctx.args)
+        return grad_features, None, None, None, None, None
+
+
+def roi_align_plain(features: torch.Tensor, boxes: torch.Tensor,
+                    output_size: int = 7, spatial_scale: float = 1.0 / 16.0,
+                    sampling_ratio: int = 0,
+                    bin_stride: int = 1) -> torch.Tensor:
+    """Interpolation-matrix ROIAlign, the plain version of the kernel:
+    ``out[r] = Wy[r] @ F @ Wx[r]^T`` in float32, contracting the longer
+    spatial axis first; its gradient is ``roi_align_backward_plain`` (S = 0
+    ROIs give an empty output and a zero gradient)."""
+    return _PlainROIAlign.apply(features, boxes, output_size, spatial_scale,
+                                sampling_ratio, bin_stride)
+
+
 def roi_align(features: torch.Tensor, boxes: torch.Tensor,
               output_size: int = 7, spatial_scale: float = 1.0 / 16.0,
               sampling_ratio: int = 0, bin_stride: int = 1) -> torch.Tensor:
-    """ROIAlignV2 on the tensors' device (``ops.dispatch``): for CUDA
-    tensors the CUDA kernels, forward and backward, through an autograd
-    Function (the gradient goes to the features, not the boxes); for CPU
-    tensors the plain version and its autograd."""
-    if use_kernel(features):
-        from .roi_align_cuda import ROIAlignFunction
-
-        return ROIAlignFunction.apply(features, boxes, output_size,
-                                      spatial_scale, sampling_ratio,
-                                      bin_stride)
-    return roi_align_plain(features, boxes, output_size, spatial_scale,
-                           sampling_ratio, bin_stride)
+    """ROIAlignV2 on the tensors' device (``ops.dispatch``) through the
+    ``fsod::roi_align`` operator (``ops/custom_ops.py``): for CUDA tensors
+    the CUDA kernels, forward and backward (the gradient goes to the
+    features, not the boxes); for CPU tensors the plain version and its
+    autograd. Inside ``plain_ops()`` CUDA tensors take the plain version."""
+    if not use_operator(features):
+        return roi_align_plain(features, boxes, output_size, spatial_scale,
+                               sampling_ratio, bin_stride)
+    return torch.ops.fsod.roi_align(features, boxes, int(output_size),
+                                    float(spatial_scale), int(sampling_ratio),
+                                    int(bin_stride))

@@ -1,5 +1,6 @@
 """ROIAlignV2 forward and backward as hand-written CUDA kernel calls
-(``csrc/roi_align.cu``), and the autograd Function that joins them.
+(``csrc/roi_align.cu``); ``ops/custom_ops.py`` makes them the CUDA
+implementations of ``fsod::roi_align`` and its gradient.
 
 Replaces the JAX package's ``roi_align_mxu`` (``ops/roi_align_mxu.py``) and
 its autodiff gradient; the plain versions are
@@ -131,26 +132,3 @@ def roi_align_bwd_cuda(grad_out: torch.Tensor, boxes: torch.Tensor,
 
 roi_align_bwd_cuda.launches = 0
 
-
-class ROIAlignFunction(torch.autograd.Function):
-    """``roi_align_cuda`` with ``roi_align_bwd_cuda`` as its backward. The
-    gradient goes to the features only: the boxes are detached proposals
-    and ground truth, as in the JAX package's training step."""
-
-    @staticmethod
-    def forward(ctx, features, boxes, output_size, spatial_scale,
-                sampling_ratio, bin_stride):
-        ctx.save_for_backward(boxes)
-        ctx.args = (tuple(features.shape), output_size, spatial_scale,
-                    sampling_ratio, bin_stride)
-        return roi_align_cuda(features, boxes, output_size, spatial_scale,
-                              sampling_ratio, bin_stride)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        (boxes,) = ctx.saved_tensors
-        grad_features = None
-        if ctx.needs_input_grad[0]:
-            grad_features = roi_align_bwd_cuda(grad, boxes, *ctx.args)
-        return grad_features, None, None, None, None, None

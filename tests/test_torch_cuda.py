@@ -344,11 +344,12 @@ def _tiny_detector(card, **kw):
     return model, images, gt
 
 
-def _step_matches_plain_ops(card, model, images, gt):
-    """One training forward/backward through the kernels (launching NMS
-    once, the ROIAlign forward and backward twice each) against the same
-    step through the plain versions: losses rtol 1e-4, every gradient
-    within 1e-4 of its largest value. Returns the kernels' losses."""
+def _step_matches_plain_ops(card, model, images, gt, launches=(1, 2, 2)):
+    """One training forward/backward through the kernels (launching NMS,
+    the ROIAlign forward and its backward ``launches`` times: once, and
+    twice each for the res5 head's two chunks) against the same step
+    through the plain versions: losses rtol 1e-4, every gradient within
+    1e-4 of its largest value. Returns the kernels' losses."""
     def step():
         model.zero_grad(set_to_none=True)
         losses = model.forward_train(
@@ -356,7 +357,8 @@ def _step_matches_plain_ops(card, model, images, gt):
         sum(v for k, v in losses.items()
             if not k.startswith("metric/")).backward()
         return losses, {n: p.grad.clone()
-                        for n, p in model.named_parameters()}
+                        for n, p in model.named_parameters()
+                        if p.grad is not None}
 
     torch.backends.cudnn.deterministic = True
     try:
@@ -365,7 +367,7 @@ def _step_matches_plain_ops(card, model, images, gt):
         got, got_g = step()
         assert (nms_sorted_cuda.launches - counts[0],
                 roi_align_cuda.launches - counts[1],
-                roi_align_bwd_cuda.launches - counts[2]) == (1, 2, 2)
+                roi_align_bwd_cuda.launches - counts[2]) == launches
         with plain_ops():
             ref, ref_g = step()
     finally:
@@ -384,6 +386,149 @@ def _step_matches_plain_ops(card, model, images, gt):
 
 def test_tiny_train_step_with_kernels_matches_plain_ops(card):
     _step_matches_plain_ops(card, *_tiny_detector(card))
+
+
+def test_tiny_standard_roi_heads_step_with_kernels_matches_plain_ops(card):
+    """StandardROIHeads pools at P 7, bin_stride 1, in one ROIAlign launch
+    a step, forward and backward."""
+    got = _step_matches_plain_ops(
+        card, *_tiny_detector(card, roi_heads_name="StandardROIHeads",
+                              box_convfc=(1, 32, 2, 64)),
+        launches=(1, 1, 1))
+    assert float(got["loss_cls"].detach()) > 0
+
+
+def test_tiny_remat_step_with_kernels_matches_plain_ops(card):
+    """TPU.REMAT_BACKBONE recomputes the stages in the backward pass; the
+    kernels are launched as without it."""
+    _step_matches_plain_ops(card, *_tiny_detector(card, remat_backbone=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_operators_on_cuda_launch_the_kernels(card, dtype):
+    """``fsod::`` operators on CUDA tensors are the launchers: one launch
+    each, the plain versions' results."""
+    rng = np.random.RandomState(3)
+    boxes = torch.from_numpy(_boxes(rng, 2, 3000, 600)).to(card)
+    valid = torch.from_numpy(rng.rand(2, 3000) > 0.05).to(card)
+    before = nms_sorted_cuda.launches
+    keep = torch.ops.fsod.nms_sorted(boxes, valid, 0.7, 300)
+    assert nms_sorted_cuda.launches == before + 1
+    assert torch.equal(keep, nms_sorted_plain(boxes, valid, 0.7, 300))
+    feat = torch.randn(2, 64, 30, 40, device=card).to(dtype)
+    rois = torch.from_numpy(_boxes(rng, 2, 50, 600)).to(card)
+    tol = dict(ROI_TOLS)[dtype]
+    for stride in (1, 2):
+        fwd, bwd = roi_align_cuda.launches, roi_align_bwd_cuda.launches
+        out = torch.ops.fsod.roi_align(feat, rois, 7, 1 / 16.0, 0, stride)
+        torch.testing.assert_close(
+            out, roi_align_plain(feat, rois, 7, 1 / 16.0, 0, stride), **tol)
+        g = torch.randn(out.shape, device=card).to(dtype)
+        grad = torch.ops.fsod.roi_align_backward(
+            g, rois, list(feat.shape), 7, 1 / 16.0, 0, stride)
+        assert (roi_align_cuda.launches, roi_align_bwd_cuda.launches) == (
+            fwd + 1, bwd + 1)
+        assert grad.shape == feat.shape and grad.dtype == dtype
+        _assert_grad_close(grad, _plain_grad(feat, rois, 7, 1 / 16.0, 0,
+                                             stride, g))
+
+
+def _tiny_serving_cfg():
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "MODEL.WEIGHTS", "", "MODEL.RESNETS.DEPTH", "14",
+        "MODEL.RESNETS.STEM_OUT_CHANNELS", "8",
+        "MODEL.RESNETS.RES2_OUT_CHANNELS", "16",
+        "MODEL.RESNETS.WIDTH_PER_GROUP", "4",
+        "MODEL.RPN.PRE_NMS_TOPK_TEST", "128",
+        "MODEL.RPN.POST_NMS_TOPK_TEST", "32",
+        "MODEL.ROI_HEADS.NUM_CLASSES", "5",
+        "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
+        "INPUT.MIN_SIZE_TEST", "96", "INPUT.MAX_SIZE_TEST", "192",
+        "TPU.IMAGE_BUCKETS", "[(128, 192)]",
+        "TPU.COMPUTE_DTYPE", "float32",
+    ])
+    return cfg
+
+
+def test_exported_program_on_cuda_launches_the_kernels(card, tmp_path):
+    """A serving artifact exported on the card: each forward launches NMS
+    twice and the ROIAlign forward once, as DefaultPredictor's does, and
+    its detections set-match DefaultPredictor's."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.export import (
+        ServingPredictor,
+        export_inference,
+        save_serving_artifact,
+    )
+
+    cfg = _tiny_serving_cfg()
+    pred = DefaultPredictor(cfg, device=card)
+    state = pred.model.state_dict()
+    meta, programs = export_inference(cfg, state, batch=(1, 2))
+    assert meta["device"] == "cuda"
+    path = str(tmp_path / "tiny.fsodtf-torch")
+    save_serving_artifact(path, meta, programs, state)
+    serving = ServingPredictor(path)
+    img = np.random.RandomState(1).randint(0, 256, (100, 150, 3), np.uint8)
+    launches = []
+    for run in (pred, serving):
+        counts = (nms_sorted_cuda.launches, roi_align_cuda.launches)
+        out = run(img)
+        launches.append((nms_sorted_cuda.launches - counts[0],
+                         roi_align_cuda.launches - counts[1]))
+        if run is pred:
+            ref = out
+    assert launches == [(2, 1), (2, 1)]
+    assert len(ref["boxes"]) > 5
+    _assert_set_match(out, ref)
+    for a, b in zip(serving.predict_batch([img, img[::-1]]),
+                    pred.predict_batch([img, img[::-1]])):
+        _assert_set_match(a, b)
+
+
+def _assert_set_match(out, ref, min_share=0.95):
+    """At least ``min_share`` of ``ref``'s detections have one in ``out``
+    with the class, IoU >= 0.9 and a score within 1e-3."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.ops import (
+        pairwise_iou,
+    )
+
+    assert abs(len(out["boxes"]) - len(ref["boxes"])) <= 0.05 * len(
+        ref["boxes"]) + 1
+    iou = pairwise_iou(torch.from_numpy(ref["boxes"]),
+                       torch.from_numpy(out["boxes"])).numpy()
+    ok = ((iou >= 0.9)
+          & (ref["classes"][:, None] == out["classes"][None, :])
+          & (np.abs(ref["scores"][:, None] - out["scores"][None, :])
+             <= 1e-3))
+    assert ok.any(axis=1).mean() >= min_share
+
+
+def test_device_resize_on_cuda_matches_the_cpu(card):
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data.device_preprocess import (
+        device_resize_batch,
+    )
+
+    rng = np.random.RandomState(0)
+    raw = torch.from_numpy(rng.randint(0, 256, (3, 384, 512, 3)).astype(
+        np.uint8))
+    hw = torch.tensor([[375, 500], [333, 500], [384, 300]], dtype=torch.int32)
+    flip = torch.tensor([False, True, False])
+    short = torch.tensor([480.0, 600.0, 800.0])
+    want, want_hw = device_resize_batch(raw, hw, flip, short, 1333,
+                                        (800, 1344))
+    got, got_hw = device_resize_batch(raw.to(card), hw.to(card),
+                                      flip.to(card), short.to(card), 1333,
+                                      (800, 1344))
+    assert torch.equal(got_hw.cpu(), want_hw)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
 
 
 def _text_head(**kw):

@@ -54,6 +54,9 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
 from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
     native_io,
 )
+from fewshotobjectdetection_imporove_via_text_feature_torch.data.device_preprocess import (
+    preprocess_batch,
+)
 from fewshotobjectdetection_imporove_via_text_feature_torch.data.builtin_meta import (
     PASCAL_VOC_ALL_CATEGORIES,
     PASCAL_VOC_BASE_CATEGORIES,
@@ -329,10 +332,36 @@ def test_get_detection_dataset_dicts_filters_empty_records(voc):
 
 
 def test_device_preprocess_raises_naming_its_roadmap_item(voc):
-    cfg = _tiny(get_cfg())
-    cfg.TPU.DEVICE_PREPROCESS = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        build_detection_train_loader(cfg, ("voc_2007_trainval_base1",))
+    """TPU.DEVICE_PREPROCESS (ROADMAP item 14) is ported: the train loader
+    gives the JAX loader's raw batches (raw pixels in a source bucket, the
+    resized hw, the GT where the device resize puts it) and the resize's
+    draws in meta, and ``preprocess_batch`` resizes them into the target
+    bucket."""
+    names = ("voc_2007_trainval_base1", "voc_2012_trainval_base1")
+    cfg, jcfg = _tiny(get_cfg()), _tiny(jax_get_cfg())
+    for c in (cfg, jcfg):
+        c.TPU.DEVICE_PREPROCESS = True
+        c.TPU.RAW_BUCKETS = ((384, 512), (512, 384))
+    ours = build_detection_train_loader(cfg, names, seed=11)
+    ref = jax_train_loader(jcfg, tuple(PREFIX + n for n in names), seed=11)
+    try:
+        for _ in range(3):
+            a, b = next(ours), next(ref)
+            draws = ("short", "flip")
+            _assert_batches_equal(
+                (a[0], a[1], {k: v for k, v in a[2].items()
+                              if k not in draws}), b)
+            for key in draws:
+                np.testing.assert_array_equal(a[2][key], b[2][key])
+            assert a[2]["target_hw"] == b[2]["target_hw"]
+            assert a[2]["max_size"] == b[2]["max_size"] == 320
+            resized = preprocess_batch(a[0], a[2])
+            assert tuple(resized.image.shape[1:3]) == a[2]["target_hw"]
+            assert resized.image.dtype == torch.float32
+    finally:
+        ours.close()
+        if hasattr(ref, "close"):
+            ref.close()
 
 
 def test_device_batches_on_the_cpu_keep_order_and_stop_their_thread(voc):

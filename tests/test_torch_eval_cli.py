@@ -351,7 +351,7 @@ def test_cli_trains_evaluates_resumes_and_keeps_the_log_contract(
     (["--opts", "TPU.SPATIAL_PARTITION", "2"], "Queue 1 item 15"),
     (["--opts", "TEST.PCB_ENABLE", "True", "TEST.PCB_MODELTYPE", "vgg"],
      "PCB_MODELTYPE"),
-    (["--opts", "TPU.DEVICE_PREPROCESS", "True"], "Queue 1 item 14"),
+    (["--opts", "TPU.MODEL_PARALLEL", "2"], "Queue 1 item 15"),
 ])
 def test_cli_refuses_what_is_not_ported(voc, tmp_path, monkeypatch,
                                         root_logging, argv, match):

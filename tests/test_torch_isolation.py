@@ -37,7 +37,11 @@ def test_importing_the_port_loads_no_jax():
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert {f"{PORT}.engine.predictor", f"{PORT}.models.attention",
             f"{PORT}.models.text_heads", f"{PORT}.utils.class_embedding",
-            f"{PORT}.utils.class_name"} <= set(mods)
+            f"{PORT}.utils.class_name", f"{PORT}.engine.export",
+            f"{PORT}.engine.server", f"{PORT}.models.box_head",
+            f"{PORT}.models.modules_zoo", f"{PORT}.utils.kdloss",
+            f"{PORT}.data.device_preprocess",
+            f"{PORT}.ops.custom_ops"} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
 
@@ -47,7 +51,8 @@ def test_importing_the_cli_tools_and_data_loads_no_jax_and_no_pil():
     JAX nor the JAX package; PIL is imported only where an image is read,
     so the port imports on a machine without it."""
     tools = sorted(p.stem for p in (ROOT / PORT / "tools").glob("*.py"))
-    assert {"make_synthetic_voc", "model_surgery"} <= set(tools)
+    assert {"make_synthetic_voc", "model_surgery", "serve",
+            "export_serving"} <= set(tools)
     names = [f"{PORT}.cli", f"{PORT}.dataloader", f"{PORT}.data.native_io",
              f"{PORT}.data.loader", f"{PORT}.evaluation.voc_eval",
              f"{PORT}.utils.events", f"{PORT}.engine.hooks",

@@ -258,13 +258,16 @@ def test_forward_inference_matches_jax(depth, stride_in_1x1, padded):
         )
 
 
-@pytest.mark.parametrize("meta,key,value,item", [
-    ("GeneralizedRCNN", "MODEL.ROI_HEADS.NAME", "StandardROIHeads", "13"),
-    ("GeneralizedRCNN", "TPU.REMAT_BACKBONE", True, "8"),
-    ("GeneralizedTextRCNN", "MODEL.ROI_HEADS.NAME", "StandardROIHeads", "13"),
+@pytest.mark.parametrize("meta,key,value", [
+    ("GeneralizedRCNN", "MODEL.ROI_HEADS.NAME", "StandardROIHeads"),
+    ("GeneralizedRCNN", "TPU.REMAT_BACKBONE", True),
+    ("GeneralizedRCNN", "MODEL.ROI_BOX_HEAD.POOLER_TYPE", "ROIAlign"),
 ])
 def test_build_model_names_the_roadmap_item_of_what_is_not_ported(
-        meta, key, value, item):
+        meta, key, value):
+    """StandardROIHeads (ROADMAP item 13) and TPU.REMAT_BACKBONE (item 8)
+    are ported and build; an architecture facet other than the
+    reference's still raises, naming it."""
     from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
         get_cfg,
     )
@@ -274,11 +277,18 @@ def test_build_model_names_the_roadmap_item_of_what_is_not_ported(
 
     cfg = get_cfg()
     cfg.MODEL.META_ARCHITECTURE = meta
+    cfg.MODEL.ROI_BOX_HEAD.NUM_FC = 2
     node = cfg
     *path, leaf = key.split(".")
     for part in path:
         node = node[part]
     node[leaf] = value
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item} "):
-        build_model(cfg)
+    if key == "MODEL.ROI_BOX_HEAD.POOLER_TYPE":
+        with pytest.raises(NotImplementedError, match="POOLER_TYPE"):
+            build_model(cfg)
+        return
+    model = build_model(cfg)
+    if value == "StandardROIHeads":
+        assert type(model.roi_heads).__name__ == value
+    else:
+        assert model.backbone.remat

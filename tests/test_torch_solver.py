@@ -67,9 +67,6 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
     Trainer,
     make_train_step,
 )
-from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
-    build_model,
-)
 from fewshotobjectdetection_imporove_via_text_feature_torch.solver import (
     build_gradient_clipper,
     build_lr_scheduler,
@@ -397,15 +394,14 @@ def test_a_jax_pickle_checkpoint_loads_without_jax(tmp_path):
 
 
 def test_training_options_not_ported_raise_with_their_roadmap_item(tmp_path):
-    cfg = _tiny_cfg(tmp_path, 1)
-    cfg.TPU.REMAT_BACKBONE = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        build_model(cfg)
-    for key, value in (("DEVICE_PREPROCESS", True), ("MODEL_PARALLEL", 2),
-                       ("CHECKPOINT_BACKEND", "orbax")):
+    # multi-device is item 15; orbax, a JAX library, stays refused (item 8)
+    for key, value, item in (("MODEL_PARALLEL", 2, 15),
+                             ("SPATIAL_PARTITION", 2, 15),
+                             ("CHECKPOINT_BACKEND", "orbax", 8)):
         cfg = _tiny_cfg(tmp_path, 1)
         cfg.TPU[key] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1 item {item} "):
             Trainer(cfg, _data(), device="cpu")
     cfg = _tiny_cfg(tmp_path, 1)
     cfg.MODEL.WEIGHTS = str(tmp_path / "R-101.pkl")  # missing: refused
