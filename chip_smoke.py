@@ -140,14 +140,36 @@ Phases, each of which fails the run on error:
      against their plain versions, timed with their bounds; its serving
      path in bf16 (NMS twice and ROIAlign once a forward); (d) one bf16
      step with TPU.REMAT_BACKBONE on the batch of one without: losses
-     equal, peak memory of each.
+     equal, peak memory of each;
+ 14. multi-device on the same config at full width and depth (the card's
+     machine has one card, and NCCL refuses two ranks on one GPU: two
+     gloo ranks share cuda:0 for (a)-(c) and (e), in one spawn through
+     ``engine/launch.py``, and NCCL runs at world 1 for (d)): (a) a DDP
+     float32 step (TF32 off) at global batch 2, one image a rank, the
+     second image 160x224 so the ranks sample different numbers of valid
+     ROIs, against one process's step on the same batch and generators
+     (sampled ROIs equal, losses within 1e-5 relative, five gradients
+     within 1e-4 of their largest values, launches NMS 1 / ROIAlign 2 /
+     backward 2 a rank); (b) the same for the text student step, whose
+     teacher attends over both ranks' ROIs; (c) TPU.MODEL_PARALLEL 2
+     (FSDP2, mesh (1, 2)) on the same ranks: losses and gradients equal
+     (a)'s, parameter and momentum bytes by rank beside DP's, its
+     checkpoint gathered to rank 0 and read back at world 1; (d) NCCL at
+     world 1: 2 warm-up and 5 timed bf16 DDP steps at batch 16 (CUDA
+     events), median beside phase 8 (b)'s, peak memory, launches per
+     step, then phases 3, 4 and 7 on one more step's own inputs; (e) phase
+     9's fine-tuned model evaluated on its 800 test images at 32 a batch,
+     PCB off, sharded over the two gloo ranks through the CLI's per-rank
+     body: bAP50 and nAP50 equal on both ranks and to phase 9's single
+     process, each rank decoding only its own batches, launches summed
+     over the ranks equal to phase 9's, images/s.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b) and 9-13, by path, PCB's apart, launches per
+main paths of phases 5, 8 (b) and 9-14, by path, PCB's apart, launches per
 train step, and the ROIAlign kernels' numbers at StandardROIHeads'
 bin_stride 1),
 then the card's name and power limit, then as the last line
@@ -1591,7 +1613,7 @@ def phase_workflow(tmp, tv_pth, profile_dir=None):
         log(f"workflow log.txt: {ln.split(': ', 1)[-1]}")
     final = os.path.join(ft_out, "model_final.pth")
     read = _reset_counts()
-    cli.main(["--eval-only"] + _workflow_args(
+    off_results = cli.main(["--eval-only"] + _workflow_args(
         ft_config, os.path.join(runs, "pcb_off"), "MODEL.WEIGHTS", final,
         "TEST.PCB_ENABLE", "False", *EVAL_THRESHOLDS))
     off_counts = read()
@@ -1632,7 +1654,9 @@ def phase_workflow(tmp, tv_pth, profile_dir=None):
         fed_window_ms=window, resident_bucket=bucket, resident_ms=resident,
         contended_ms=contended, eval_batch=cli.EVAL_BATCH_SIZE,
         eval_images_per_s=1 / timing["s_per_image"], pcb=pcb_nums,
-        datasets=root, ft_config=ft_config)
+        datasets=root, ft_config=ft_config, final=final,
+        off_bbox=off_results["voc_2007_test_all1"]["bbox"],
+        off_counts=off_counts, off_images_per_s=1 / off["s_per_image"])
 
 
 def _plain_copies(calls):
@@ -2769,6 +2793,337 @@ def phase_remat(tmp):
     return {"peak_gib": m1, "peak_gib_no_remat": m0, "max_rel_loss": worst}
 
 
+# ---------------------------------------------------------------- phase 14
+# NCCL refuses two ranks on one GPU, so on a one-card machine two ranks
+# share cuda:0 over gloo (a, b, c, e: host-staged collectives, step times
+# not a scaling figure) and NCCL runs at world 1 (d)
+P14_RANKS = 2
+# (d): the DDP step's timed window, beside phase 8 (b)
+P14_WARMUP, P14_TIMED = 2, 5
+
+
+def _p14_batch():
+    """The global batch of (a)-(c): phase 8 (a)'s two images with the
+    second cut to a 160x224 image in the 800x1344 canvas (its GT scaled
+    in), so the two images sample different numbers of valid ROIs. CPU
+    tensors."""
+    import torch
+
+    (images, gt), = train_batches(11, 1, 2)
+    h, w = 160, 224
+    images.image[1, h:] = 0
+    images.image[1, :, w:] = 0
+    images.hw[1] = torch.tensor([h, w])
+    images.orig_hw[1] = torch.tensor([h, w])
+    gt.boxes[1] = gt.boxes[1] * torch.tensor([w / 1333, h / 800] * 2)
+    return images, gt
+
+
+def _whole(t):
+    """A gradient or parameter as a whole CPU tensor (an FSDP2 shard is
+    gathered: every rank calls it)."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.parallel import (
+        full_tensor,
+    )
+
+    return full_tensor(t).detach().cpu()
+
+
+def _p14_step(tmp, opts, grads, label, batch):
+    """One float32 Trainer step (TF32 off, cuDNN deterministic) on this
+    process's rows of ``batch``: one process, or a rank of the process
+    group (DDP, or FSDP2 with TPU.MODEL_PARALLEL in ``opts``). Returns the
+    global losses, the whole gradients of ``grads``, the sampled ROIs and
+    the launches of the step, and the Trainer."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.parallel import (
+        local_rows,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = _train_cfg(os.path.join(tmp, label.replace(" ", "_")), "float32",
+                     2, 1, opts)
+    trainer = Trainer(cfg, [batch])
+    images, gt = (t.to("cuda") for t in local_rows(batch))
+    records, restore = _recording_sampler()
+    try:
+        read = _reset_counts()
+        losses = trainer.train_step(images, gt, 0)
+        torch.cuda.synchronize()
+        counts = read()
+    finally:
+        restore()
+        torch.backends.cudnn.deterministic = False
+    named = dict(trainer.model.named_parameters())
+    (_, _, boxes, valid), = records
+    return dict(losses={k: float(v) for k, v in losses.items()},
+                grads={n: _whole(named[n].grad) for n in grads},
+                rois=boxes.cpu(), roi_valid=valid.cpu(),
+                counts=counts), trainer
+
+
+def _p14_bytes(trainer):
+    """This rank's parameter and momentum bytes."""
+    from torch.distributed.tensor import DTensor
+
+    def local(t):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        return t.numel() * t.element_size()
+
+    params = sum(local(p) for p in trainer.model.parameters())
+    mom = sum(local(st["momentum_buffer"])
+              for st in trainer.optimizer.state.values()
+              if "momentum_buffer" in st)
+    return dict(param_bytes=params, momentum_bytes=mom)
+
+
+def _p14_rank(spec):
+    """Phase 14 in one of the gloo ranks sharing cuda:0: (a) the DDP step,
+    (b) the text student step, (c) TPU.MODEL_PARALLEL 2 (FSDP2) with its
+    checkpoint gathered to rank 0, then (e) this rank's share of the
+    sharded evaluation through the CLI's per-rank body. Returns what the
+    parent checks, the launches of each included."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data.mapper import (
+        DatasetMapper,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation import (
+        inference_on_dataset,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.parallel import (
+        get_rank,
+    )
+
+    out = {"rank": get_rank()}
+    batch = _p14_batch()
+    tmp = spec["tmp"]
+    out["a"], trainer = _p14_step(tmp, (), TRAIN_GRADS, "ddp f32", batch)
+    out["a"]["bytes"] = _p14_bytes(trainer)
+    del trainer
+    out["b"], trainer = _p14_step(tmp, TEXT_OPTS, TEXT_GRADS,
+                                  "ddp text f32", batch)
+    del trainer
+    out["c"], trainer = _p14_step(tmp, ("TPU.MODEL_PARALLEL", "2"),
+                                  TRAIN_GRADS, "zero f32", batch)
+    out["c"]["bytes"] = _p14_bytes(trainer)
+    named = dict(trainer.model.named_parameters())
+    out["c"]["params"] = {n: _whole(named[n]) for n in TRAIN_GRADS}
+    trainer.save(0, name="zero_step")  # gathered; rank 0 writes
+    trainer.checkpointer.wait()
+    out["c"]["checkpoint"] = os.path.join(trainer.cfg.OUTPUT_DIR,
+                                          "zero_step.pth")
+    del trainer, named
+    torch.cuda.empty_cache()
+
+    decoded = []
+    call = DatasetMapper.__call__
+
+    def recording(self, record, *args, **kwargs):
+        decoded.append(record["image_id"])
+        return call(self, record, *args, **kwargs)
+
+    DatasetMapper.__call__ = recording
+    try:
+        read = _reset_counts()
+        results = cli.run(cli.default_argument_parser().parse_args(
+            spec["eval_argv"]))
+        counts = read()
+    finally:
+        DatasetMapper.__call__ = call
+    timing = inference_on_dataset.last_timing
+    out["e"] = dict(bbox=results["voc_2007_test_all1"]["bbox"],
+                    decoded=sorted(set(decoded)), counts=counts,
+                    images=timing["images"],
+                    images_per_s=1 / timing["s_per_image"],
+                    wall_images_per_s=1 / timing["wall_s_per_image"])
+    return out
+
+
+def _p14_compare(label, got, ref, grads, row=None):
+    """``got`` (a rank's step) against ``ref`` within phase 8 (a)'s
+    tolerances; with ``row``, the sampled ROIs against that row of
+    ``ref``'s. Returns the worst differences."""
+    import torch
+
+    if row is not None and not (
+            torch.equal(got["rois"], ref["rois"][row:row + 1])
+            and torch.equal(got["roi_valid"], ref["roi_valid"][row:row + 1])):
+        raise PhaseError(f"{label}: sampled ROIs differ from the "
+                         "single-process step's")
+    worst = {}
+    for k, b in ref["losses"].items():
+        if k.startswith("metric/"):
+            continue
+        a = got["losses"][k]
+        worst[k] = abs(a - b) / max(abs(b), 1e-30)
+        if worst[k] > TRAIN_LOSS_RTOL:
+            raise PhaseError(f"{label}: {k} {a} against {b}")
+    for n in grads:
+        scale = float(ref["grads"][n].abs().max())
+        err = float((got["grads"][n] - ref["grads"][n]).abs().max())
+        worst[n] = err / max(scale, 1e-30)
+        if not scale > 0 or worst[n] > TRAIN_GRAD_TOL:
+            raise PhaseError(f"{label}: gradient of {n} off by "
+                             f"{worst[n]:.3g} of its max {scale:.3g}")
+    if got["counts"] != dict(zip(KERNEL_NAMES, (1, 2, 2))):
+        raise PhaseError(f"{label}: launches {got['counts']}")
+    return worst
+
+
+def _sum_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in KERNEL_NAMES}
+
+
+def phase_multi_device(tmp, workflow, flagship):
+    """Phase 14: multi-device on the port at full width and depth on the
+    same config, seeded weights. (a)-(c) and (e) in one spawn of two gloo
+    ranks sharing cuda:0 (``engine/launch.py``), against single-process
+    references made here first; (d) NCCL at world 1 in this process.
+    ``workflow`` is phase 9's numbers, ``flagship`` phase 8 (b)'s. Returns
+    {path: launches} and the numbers."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.launch import (
+        _free_port,
+        launch,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.parallel import (
+        destroy_distributed,
+        init_distributed,
+    )
+
+    t_phase = time.perf_counter()
+    batch = _p14_batch()
+    ref_a, trainer = _p14_step(tmp, (), TRAIN_GRADS, "one f32", batch)
+    ref_a["bytes"] = _p14_bytes(trainer)
+    del trainer
+    ref_b, trainer = _p14_step(tmp, TEXT_OPTS, TEXT_GRADS, "one text f32",
+                               batch)
+    del trainer
+    torch.cuda.empty_cache()
+    os.environ["FSODTF_DATASETS"] = workflow["datasets"]
+    eval_argv = ["--eval-only"] + _workflow_args(
+        workflow["ft_config"], os.path.join(tmp, "sharded_eval"),
+        "MODEL.WEIGHTS", workflow["final"], "TEST.PCB_ENABLE", "False",
+        *EVAL_THRESHOLDS)
+    t0 = time.perf_counter()
+    ranks = launch(_p14_rank, P14_RANKS, args=(dict(
+        tmp=tmp, eval_argv=eval_argv),), backend="gloo",
+        devices=["cuda:0"] * P14_RANKS, timeout=900)
+    spawn_s = time.perf_counter() - t0
+
+    # (a) and (b): each rank against the single-process step
+    valid = [int(r["a"]["roi_valid"].sum()) for r in ranks]
+    if len(set(valid)) < 2:
+        raise PhaseError(f"ddp f32: the ranks sampled {valid} valid ROIs: "
+                         "the global normalizers go untested")
+    worst_a = [_p14_compare(f"ddp f32 rank {r['rank']}", r["a"], ref_a,
+                            TRAIN_GRADS, r["rank"]) for r in ranks]
+    worst_b = [_p14_compare(f"ddp text f32 rank {r['rank']}", r["b"], ref_b,
+                            TEXT_GRADS, r["rank"]) for r in ranks]
+    if not TEXT_LOSSES <= set(ranks[0]["b"]["losses"]):
+        raise PhaseError(f"ddp text f32: losses {sorted(ranks[0]['b'])}")
+    log(f"multi-device (a): DDP float32 step, global batch 2 on two gloo "
+        f"ranks sharing cuda:0 (one image a rank), against one process's "
+        f"step on the same batch and generators: sampled ROIs equal, "
+        f"valid ROIs by rank {valid} (one process: "
+        f"{int(ref_a['roi_valid'].sum())}); worst relative loss and "
+        f"gradient differences by rank "
+        f"{[_fmt(w) for w in worst_a]}; losses "
+        f"{ {k: round(v, 6) for k, v in ranks[0]['a']['losses'].items() if not k.startswith('metric/')} }; "
+        f"launches a rank {ranks[0]['a']['counts']}")
+    log(f"multi-device (b): DDP text student step (the teacher attends over "
+        f"both ranks' ROIs) against one process's: sampled ROIs equal, "
+        f"worst differences by rank {[_fmt(w) for w in worst_b]}; launches "
+        f"a rank {ranks[0]['b']['counts']}")
+
+    # (c) TPU.MODEL_PARALLEL 2 against (a)'s DP step, checkpoint at world 1
+    worst_c = [_p14_compare(f"zero f32 rank {r['rank']}", r["c"], r["a"],
+                            TRAIN_GRADS) for r in ranks]
+    state = torch.load(ranks[0]["c"]["checkpoint"], map_location="cpu",
+                       weights_only=True)
+    for n in TRAIN_GRADS:
+        if not torch.equal(state["model"][n], ranks[0]["c"]["params"][n]):
+            raise PhaseError(f"zero checkpoint: {n} differs from the "
+                             "gathered parameter")
+    zb = [r["c"]["bytes"] for r in ranks]
+    db = ranks[0]["a"]["bytes"]
+    log(f"multi-device (c): TPU.MODEL_PARALLEL 2 (FSDP2, mesh (1, 2)) on the "
+        f"same two ranks: losses and gradients equal (a)'s DP step (worst "
+        f"by rank {[_fmt(w) for w in worst_c]}); parameter and momentum "
+        f"bytes by rank {zb} against DP's {db} a rank; its checkpoint, "
+        f"gathered to rank 0, loads at world 1 with the gathered values "
+        f"({len(state['model'])} tensors); launches a rank "
+        f"{ranks[0]['c']['counts']}")
+    del state
+
+    # (e) sharded evaluation against phase 9's single-process evaluation
+    want = workflow["off_bbox"]
+    for r in ranks:
+        e = r["e"]
+        if {k: e["bbox"][k] for k in ("bAP50", "nAP50")} != {
+                k: want[k] for k in ("bAP50", "nAP50")}:
+            raise PhaseError(f"sharded eval rank {r['rank']}: {e['bbox']} "
+                             f"against one process's {want}")
+        if e["images"] != WORKFLOW_IMAGES:
+            raise PhaseError(f"sharded eval rank {r['rank']}: "
+                             f"{e['images']} images")
+    decoded = [set(r["e"]["decoded"]) for r in ranks]
+    if decoded[0] & decoded[1] or len(decoded[0] | decoded[1]) != \
+            WORKFLOW_IMAGES:
+        raise PhaseError(f"sharded eval: decoded {[len(d) for d in decoded]}"
+                         f" images, {len(decoded[0] & decoded[1])} by both")
+    eval_counts = _sum_counts(*(r["e"]["counts"] for r in ranks))
+    if eval_counts != workflow["off_counts"]:
+        raise PhaseError(f"sharded eval: launches {eval_counts}, one "
+                         f"process {workflow['off_counts']}")
+    log(f"multi-device (e): evaluation of {WORKFLOW_IMAGES} test images at "
+        f"batch 32 sharded over the two gloo ranks through the CLI (PCB "
+        f"off): bAP50 {ranks[0]['e']['bbox']['bAP50']:.4f}, nAP50 "
+        f"{ranks[0]['e']['bbox']['nAP50']:.4f} on both ranks, equal to phase "
+        f"9's single process; images decoded by rank "
+        f"{[len(d) for d in decoded]}; {ranks[0]['e']['images_per_s']:.2f} "
+        f"images/s over the last batches ({ranks[0]['e']['wall_images_per_s']:.2f}"
+        f" wall) against phase 9's {workflow['off_images_per_s']:.2f} on one "
+        f"process; launches by rank {[r['e']['counts'] for r in ranks]}, "
+        f"summed equal to phase 9's; the spawn took {spawn_s:.1f} s")
+
+    # (d) NCCL at world 1: the DDP bf16 step at IMS_PER_BATCH, timed
+    init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
+                     device="cuda:0")
+    try:
+        ddp, ddp_counts, next_step = phase_train_bf16(
+            tmp, warmup=P14_WARMUP, timed=P14_TIMED,
+            label="DDP train bfloat16 (NCCL, world 1)")
+        phase_train_inputs(capture_kernel_inputs(next_step),
+                           "ddp_train_path")
+        del next_step
+    finally:
+        destroy_distributed()
+    torch.cuda.empty_cache()
+    log(f"multi-device summary (phase 14; two gloo ranks share the card, "
+        f"NCCL only at world 1): DDP bf16 step at batch 16 (NCCL, world 1) "
+        f"median {ddp['median_ms']:.2f} ms (mean {ddp['window_ms']:.2f}), "
+        f"peak {ddp['peak_gib']:.2f} GiB, beside phase 8 (b)'s "
+        f"{flagship['median_ms']:.2f} ms and {flagship['peak_gib']:.2f} GiB;"
+        f" sharded evaluation {ranks[0]['e']['images_per_s']:.2f} images/s "
+        f"on two gloo ranks of one card (host-staged collectives, not a "
+        f"scaling figure); phase 14 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"ddp_training": ddp_counts,
+            "ddp_training_gloo_two_ranks": _sum_counts(
+                *(r[k]["counts"] for r in ranks for k in ("a", "b"))),
+            "zero_training": _sum_counts(*(r["c"]["counts"] for r in ranks)),
+            "sharded_eval": eval_counts}, dict(
+        ddp=ddp, zero_bytes=zb, dp_bytes=db,
+        eval_images_per_s=ranks[0]["e"]["images_per_s"])
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
@@ -2936,6 +3291,8 @@ def main(argv) -> int:
         coco_counts, coco = phase_coco(os.path.join(tmp, "coco"), tv_pth)
         text_counts, _ = phase_text(os.path.join(tmp, "text"), workflow,
                                     tv_pth, per_step, profile_dir)
+        multi_counts, multi = phase_multi_device(os.path.join(tmp, "multi"),
+                                                 workflow, per_step)
     with tempfile.TemporaryDirectory() as tmp:
         export_counts, server_counts, serving = phase_serving(tmp,
                                                               profile_dir)
@@ -3011,7 +3368,8 @@ def main(argv) -> int:
             "http_server": server_counts[name],
             "device_preprocess_training": dp_counts[name],
             "standard_roi_heads_training": std_counts[name],
-            "standard_roi_heads_serving": std_serve_counts[name]}
+            "standard_roi_heads_serving": std_serve_counts[name],
+            **{path: c[name] for path, c in multi_counts.items()}}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
         if name != "greedy_nms":  # StandardROIHeads' launch shape

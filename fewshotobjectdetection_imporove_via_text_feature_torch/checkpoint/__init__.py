@@ -1,7 +1,10 @@
 from .checkpointer import (
     Checkpointer,
+    full_model_state,
     load_checkpoint_file,
     load_jax_checkpoint,
+    load_training_state,
+    training_state,
 )
 from .convert import init_weights, state_dict_from_jax_params
 from .torch_import import (
@@ -18,6 +21,9 @@ from .surgery import (
 
 __all__ = [
     "Checkpointer",
+    "full_model_state",
+    "load_training_state",
+    "training_state",
     "load_checkpoint_file",
     "load_jax_checkpoint",
     "load_reference_weights",

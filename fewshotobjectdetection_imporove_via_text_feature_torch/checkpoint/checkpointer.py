@@ -8,6 +8,13 @@ renamed, then the marker, so a kill mid-save never leaves a truncated file
 under a final name. ``save_async`` moves the write to one background
 thread after the tensors are copied to the host.
 
+``training_state`` and ``load_training_state`` are the one format of a
+training checkpoint, whatever the wrap: whole tensors, and the optimizer's
+state keyed by parameter index, as ``optimizer.state_dict()`` gives it in
+one process. Under FSDP2 (TPU.MODEL_PARALLEL > 1) the shards are gathered
+to save (rank 0 writes), and a whole checkpoint is sharded again to load,
+so a checkpoint written at one world size loads at any other.
+
 ``load_jax_checkpoint`` reads a JAX package pickle checkpoint (its
 ``load_checkpoint_file``, copied here) without JAX: objects of jax, flax or
 optax classes (the optimizer state's containers) unpickle as inert
@@ -149,3 +156,84 @@ class Checkpointer:
         with open(marker) as f:
             name = f.read().strip()
         return self.load(os.path.join(self.save_dir, name), map_location)
+
+
+def _params_in_order(optimizer):
+    """The parameters in the optimizer's order (its state indices)."""
+    return [p for g in optimizer.param_groups for p in g["params"]]
+
+
+def _whole(obj, cpu: bool):
+    """``obj`` with every DTensor gathered whole (on the CPU with
+    ``cpu``)."""
+    from ..parallel.collectives import full_tensor
+
+    if isinstance(obj, torch.Tensor):
+        t = full_tensor(obj).detach()
+        return t.to("cpu", copy=True) if cpu else t
+    if isinstance(obj, dict):
+        return {k: _whole(v, cpu) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_whole(v, cpu) for v in obj)
+    return obj
+
+
+def training_state(model, optimizer, scheduler, iteration: int):
+    """The checkpoint of a training run: ``{"model", "optimizer",
+    "scheduler", "iteration"}``, in a single process's format (the
+    optimizer's state keyed by parameter index). Under FSDP2 every rank
+    must call it: the shards are gathered, to the CPU."""
+    from ..parallel.mesh import is_sharded
+
+    state = {"scheduler": scheduler.state_dict(), "iteration": iteration}
+    if not is_sharded(model):
+        return {"model": model.state_dict(),
+                "optimizer": optimizer.state_dict(), **state}
+    return {"model": _whole(model.state_dict(), cpu=True),
+            "optimizer": _whole(optimizer.state_dict(), cpu=True), **state}
+
+
+def load_training_state(model, optimizer, state) -> None:
+    """Load a checkpoint of ``training_state`` (written at any world size)
+    into ``model`` and, when it has one, ``optimizer``; under FSDP2 each
+    rank keeps its shards of the whole tensors."""
+    from ..parallel.collectives import shard_like
+    from ..parallel.mesh import is_sharded
+
+    if not is_sharded(model):
+        model.load_state_dict(state["model"])
+        if "optimizer" in state:
+            optimizer.load_state_dict(state["optimizer"])
+        return
+    from torch.distributed.tensor import DTensor
+
+    live = model.state_dict()
+    if set(live) != set(state["model"]):
+        raise KeyError(
+            f"checkpoint keys differ: missing "
+            f"{sorted(set(live) - set(state['model']))[:5]}, unexpected "
+            f"{sorted(set(state['model']) - set(live))[:5]}")
+    with torch.no_grad():
+        for k, t in live.items():
+            full = state["model"][k]
+            if isinstance(t, DTensor):
+                t.to_local().copy_(shard_like(full, t).to_local())
+            else:
+                t.copy_(full)
+    if "optimizer" in state:
+        params = _params_in_order(optimizer)
+        osd = state["optimizer"]
+        optimizer.load_state_dict({**osd, "state": {
+            i: {k: shard_like(v, params[i]) if torch.is_tensor(v)
+                and v.dim() else v for k, v in st.items()}
+            for i, st in osd["state"].items()}})
+
+
+def full_model_state(model):
+    """``model``'s state dict with whole tensors (under FSDP2 a gather
+    every rank must join; the model's own otherwise)."""
+    from ..parallel.mesh import is_sharded
+
+    if not is_sharded(model):
+        return model.state_dict()
+    return _whole(model.state_dict(), cpu=False)

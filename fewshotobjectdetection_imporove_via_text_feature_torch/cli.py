@@ -15,9 +15,22 @@ whole log, ending in the "copypaste:" lines that
 weights drawn from the seed.
 
 ``TEST.PCB_ENABLE True`` rescores the detections with PCB
-(``evaluation/pcb.py``). Not ported yet, and refused: more than one GPU or
-machine (ROADMAP.md Queue 1 item 15) and ``TPU.SPATIAL_PARTITION > 1``
-(item 15).
+(``evaluation/pcb.py``).
+
+More than one device, as the reference launches it:
+
+    python -m ...cli --num-gpus 8 --config-file ...             # 8 cards
+    python -m ...cli --num-gpus 8 --num-machines 2 --machine-rank R \
+        --dist-url tcp://HOST0:PORT --config-file ...            # 2 machines
+    python -m ...cli --num-gpus 2 --config-file ... --opts MODEL.DEVICE cpu
+
+``engine/launch.py`` starts one process a device (``MODEL.DEVICE cpu``:
+CPU ranks over gloo); training is data parallel (DDP), or ZeRO-3 with
+``TPU.MODEL_PARALLEL`` M > 1 (FSDP2, one machine), on the losses of the
+global batch; evaluation runs whole batches round-robin across the ranks
+and every rank reports the same metrics. Rank 0 writes log.txt and the
+checkpoints, the others OUTPUT_DIR/rank{r}/log.txt. ``TPU.SPATIAL_PARTITION``
+is a serving option and is refused here, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,7 +58,7 @@ def default_argument_parser():
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--eval-only", action="store_true")
     parser.add_argument("--eval-iter", type=int, default=-1)
-    # the reference's launch options: one GPU and one machine here
+    # the reference's launch options: local ranks (one a device), machines
     parser.add_argument("--num-gpus", type=int, default=1)
     parser.add_argument("--num-machines", type=int, default=1)
     parser.add_argument("--machine-rank", type=int, default=0)
@@ -57,20 +70,19 @@ def default_argument_parser():
     return parser
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet: ROADMAP.md {where}")
-
-
 def check_cli_config(cfg, args=None) -> None:
     """Raise for an option this package does not run."""
-    if args is not None and (args.num_machines > 1 or args.num_gpus > 1):
-        raise _not_ported(
-            f"--num-gpus {args.num_gpus} --num-machines {args.num_machines}",
-            "Queue 1 item 15 (multi-device)")
+    if args is not None and args.num_machines > 1 and \
+            cfg.TPU.MODEL_PARALLEL > 1:
+        raise ValueError("TPU.MODEL_PARALLEL > 1 runs on one machine only "
+                         "(a run across machines is data parallel)")
     if cfg.TPU.SPATIAL_PARTITION > 1:
-        raise _not_ported("TPU.SPATIAL_PARTITION > 1",
-                          "Queue 1 item 15 (multi-device)")
+        # a serving option (DefaultPredictor), as in the JAX package:
+        # evaluation and training would run unpartitioned without saying so
+        raise ValueError(
+            "TPU.SPATIAL_PARTITION applies to DefaultPredictor serving "
+            "only; evaluation runs whole batches round-robin across the "
+            "ranks")
     if cfg.TEST.PCB_ENABLE and cfg.TEST.PCB_MODELTYPE != "resnet":
         # PCB raises so too, after training: say it before
         raise NotImplementedError(
@@ -78,9 +90,8 @@ def check_cli_config(cfg, args=None) -> None:
             "exists (the reference raises the same way)")
 
 
-def setup(args):
-    """cfg from the file and the overrides; logging to stdout and
-    OUTPUT_DIR/log.txt."""
+def load_config(args):
+    """cfg from the file and the overrides."""
     from .config import get_cfg
 
     cfg = get_cfg()
@@ -88,6 +99,15 @@ def setup(args):
         cfg.merge_from_file(args.config_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
+    return cfg
+
+
+def setup(args):
+    """cfg from the file and the overrides; logging to stdout and
+    OUTPUT_DIR/log.txt (OUTPUT_DIR/rank{r}/log.txt on ranks above 0)."""
+    from .engine.trainer import rank_output_dir
+
+    cfg = load_config(args)
     # EVAL_PERIOD as the reference (main.py:81-82) rewrites it; 0 (the
     # default) evaluates at the end
     if cfg.TEST.EVAL_PERIOD == 1000:
@@ -105,8 +125,9 @@ def setup(args):
         sh._fsodtf_torch = "stdout"
         root.addHandler(sh)
     if cfg.OUTPUT_DIR:
-        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-        path = os.path.abspath(os.path.join(cfg.OUTPUT_DIR, "log.txt"))
+        out = rank_output_dir(cfg)
+        os.makedirs(out, exist_ok=True)
+        path = os.path.abspath(os.path.join(out, "log.txt"))
         # one file handler per log.txt, however often setup runs in-process
         if not any(getattr(h, "_fsodtf_torch", None) == path
                    for h in root.handlers):
@@ -172,13 +193,16 @@ def build_test_model(cfg):
 def do_test(cfg, model=None):
     """Evaluate on every dataset of cfg.DATASETS.TEST, with PCB when
     TEST.PCB_ENABLE; prints the copypaste rows and exits 1 when
-    TEST.EXPECTED_RESULTS fails."""
+    TEST.EXPECTED_RESULTS fails. Under a process group each rank decodes
+    and runs its round-robin share of the batches, and every rank returns
+    the same results."""
     from .data import build_detection_test_loader
     from .evaluation import (
         inference_on_dataset,
         print_csv_format,
         verify_results,
     )
+    from .parallel import get_rank, get_world_size
 
     check_cli_config(cfg)
     if model is None:
@@ -192,7 +216,8 @@ def do_test(cfg, model=None):
     results = {}
     for dataset_name in cfg.DATASETS.TEST:
         loader = build_detection_test_loader(
-            cfg, dataset_name, batch_size=EVAL_BATCH_SIZE, pin_memory=pin)
+            cfg, dataset_name, batch_size=EVAL_BATCH_SIZE, pin_memory=pin,
+            shard=(get_rank(), get_world_size()))
         evaluator = build_evaluator(cfg, dataset_name, cfg.OUTPUT_DIR)
         res = inference_on_dataset(model, loader, evaluator, pcb=pcb,
                                    no_gt=cfg.TEST.NO_GT_EVAL)
@@ -205,7 +230,8 @@ def do_test(cfg, model=None):
 
 def do_train(cfg, resume: bool = False):
     """Train on cfg.DATASETS.TRAIN, with the periodic evaluation hook;
-    returns the ``Trainer``."""
+    returns the ``Trainer``. Data parallel (or FSDP2) under a process
+    group."""
     from .engine import Trainer
     from .engine.hooks import EvalHook
 
@@ -214,13 +240,38 @@ def do_train(cfg, resume: bool = False):
     if 0 < cfg.TEST.EVAL_PERIOD < cfg.SOLVER.MAX_ITER and cfg.DATASETS.TEST:
         trainer.hooks.append(EvalHook(
             cfg.TEST.EVAL_PERIOD, cfg.SOLVER.MAX_ITER, cfg.OUTPUT_DIR,
-            lambda: do_test(cfg, model=trainer.model)))
+            lambda: do_test(cfg, model=trainer.inference_model())))
     trainer.train()
     return trainer
 
 
 def main(argv=None):
+    """The command line. With ``--num-gpus`` or ``--num-machines`` above 1
+    it runs on one process a device (``engine/launch.py``) and returns
+    local rank 0's results."""
     args = default_argument_parser().parse_args(argv)
+    if args.num_gpus * args.num_machines == 1:
+        return run(args)
+    from .engine.launch import launch
+
+    device = load_config(args).MODEL.DEVICE
+    if device == "cpu":
+        devices = ["cpu"] * args.num_gpus
+    else:
+        import torch
+
+        if args.num_gpus > torch.cuda.device_count():
+            raise ValueError(
+                f"--num-gpus {args.num_gpus}: {torch.cuda.device_count()} "
+                "CUDA devices are visible")
+        devices = [f"cuda:{i}" for i in range(args.num_gpus)]
+    return launch(run, args.num_gpus, args.num_machines, args.machine_rank,
+                  args.dist_url, args=(args,), devices=devices)[0]
+
+
+def run(args):
+    """Train and evaluate, or evaluate only, in this process (one rank of
+    a launch, or the whole run)."""
     cfg = setup(args)
 
     from .data import register_all
@@ -236,7 +287,7 @@ def main(argv=None):
         # SIGTERM: a resumable checkpoint was saved; no final evaluation
         return None
     if cfg.DATASETS.TEST:
-        return do_test(cfg, model=trainer.model)
+        return do_test(cfg, model=trainer.inference_model())
     return None
 
 

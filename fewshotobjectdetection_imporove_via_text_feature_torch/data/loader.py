@@ -266,11 +266,17 @@ def build_detection_train_loader(
 
 def build_detection_test_loader(
     cfg, dataset_name: str, batch_size: int = 1, *, prefetch: bool = True,
-    pin_memory: bool = False,
+    pin_memory: bool = False, shard=None,
 ) -> Iterator:
     """Sequential loader over the whole test set, batches grouped by
     bucket; a group's last partial batch is padded with copies of its last
-    record, and ``meta['valid_count']`` counts the real ones."""
+    record, and ``meta['valid_count']`` counts the real ones.
+
+    ``shard=(rank, world)``: every rank builds the same batch sequence from
+    the metadata-only plans, batch k is rank ``k % world``'s, and a foreign
+    batch comes out as ``(None, None, {"skip": True, "valid_count": 0})``
+    and is never decoded (the JAX package's contract, ref InferenceSampler,
+    dataloader/build.py:385)."""
     dicts = get_detection_dataset_dicts([dataset_name], filter_empty=False)
     mapper = DatasetMapper.from_config(cfg, is_train=False)
     num_workers = max(1, int(cfg.DATALOADER.NUM_WORKERS))
@@ -298,19 +304,25 @@ def build_detection_test_loader(
                 item["_pad"] = True
             return item
 
+        rank, world = shard if shard is not None else (0, 1)
+
+        def take(futures):
+            if futures is None:  # another rank's batch
+                return None, None, {"skip": True, "valid_count": 0}
+            return _stack_batch([f.result() for f in futures], pin_memory)
+
         # enough batches in flight to keep every worker busy
         window = max(3, -(-2 * num_workers // batch_size))
         with ThreadPoolExecutor(num_workers) as pool:
             submitted = deque()
-            for batch in batches:
-                submitted.append([pool.submit(load, a) for a in batch])
+            for k, batch in enumerate(batches):
+                submitted.append([pool.submit(load, a) for a in batch]
+                                 if k % world == rank else None)
                 if len(submitted) < window:
                     continue
-                yield _stack_batch([f.result() for f in submitted.popleft()],
-                                   pin_memory)
+                yield take(submitted.popleft())
             while submitted:
-                yield _stack_batch([f.result() for f in submitted.popleft()],
-                                   pin_memory)
+                yield take(submitted.popleft())
 
     return Prefetcher(generate) if prefetch else generate()
 
@@ -321,12 +333,16 @@ def device_batches(batches: Iterable, device):
     taken. On CUDA the copies are enqueued ``non_blocking`` (from
     page-locked memory when the loader pinned it) on a stream of their own,
     so they can run beside the previous step's queued work; the current
-    stream waits for them before the batch's first use."""
+    stream waits for them before the batch's first use. A sharded test
+    loader's foreign batch (``images`` None) passes through as it is."""
     device = torch.device(device)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     for batch in batches:
         images, gt = batch[0], batch[1]
         meta = batch[2] if len(batch) > 2 else {}
+        if images is None:
+            yield None, None, meta
+            continue
         if stream is None:
             yield images.to(device), gt.to(device), meta
             continue

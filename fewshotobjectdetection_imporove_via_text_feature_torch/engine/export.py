@@ -133,8 +133,7 @@ def export_inference(cfg, state_dict, batch=1,
     if cfg.TPU.SPATIAL_PARTITION > 1:
         raise ValueError(
             "TPU.SPATIAL_PARTITION is not exportable: an exported program "
-            "runs on one device (multi-device serving is ROADMAP.md Queue 1 "
-            "item 15)")
+            "runs on one device")
     dev = resolve_device(cfg, device)
     model = build_model(cfg)
     model.load_state_dict(state_dict)

@@ -21,8 +21,18 @@ and on SIGTERM saves and stops. A batch of the device-preprocessing loader
 resized on the device first. TPU.DEBUG_NANS checks each step's losses and
 gradients and raises ``FloatingPointError`` on the first non-finite one;
 TPU.PROFILE_START_STEP / PROFILE_NUM_STEPS trace a window of steps with
-``torch.profiler`` into OUTPUT_DIR/profile. Multi-device training is not
-in this package yet and its options raise.
+``torch.profiler`` into OUTPUT_DIR/profile.
+
+Under a process group (``parallel.init_distributed``, one process a
+device, as ``engine/launch.py`` starts them) each rank takes its
+``IMS_PER_BATCH / world`` rows of every global batch and the model is
+wrapped by ``parallel.wrap_model``: DDP, or FSDP2 when
+TPU.MODEL_PARALLEL > 1 (one machine only, as in the JAX package). The
+step's losses and gradient are those of the global batch, and the logged
+losses are the same on every rank. Rank 0 writes metrics.json, the log
+and the checkpoints in OUTPUT_DIR, the others their metrics under
+OUTPUT_DIR/rank{r}; a SIGTERM on any rank stops every rank after the same
+step, with one checkpoint.
 """
 
 from __future__ import annotations
@@ -37,12 +47,27 @@ import torch
 
 from ..checkpoint import (
     Checkpointer,
+    full_model_state,
     init_weights,
+    load_training_state,
     maybe_load_reference_weights,
+    training_state,
 )
 from ..data.device_preprocess import preprocess_batch
 from ..data.loader import build_detection_train_loader, device_batches
 from ..models import build_model
+from ..parallel import (
+    any_rank,
+    broadcast_seed,
+    get_rank,
+    get_world_size,
+    is_main_process,
+    is_sharded,
+    local_rows,
+    mean_over_ranks,
+    spans_machines,
+    wrap_model,
+)
 from ..solver import build_gradient_clipper, build_optimizer, build_scheduler
 from ..utils.events import MetricsLogger
 from .predictor import resolve_device
@@ -50,8 +75,6 @@ from .predictor import resolve_device
 # options of the JAX trainer that this package does not have:
 # (key, the value that is honoured, where ROADMAP.md puts the rest)
 _NOT_PORTED = (
-    ("TPU.MODEL_PARALLEL", 1, "Queue 1 item 15 (multi-device)"),
-    ("TPU.SPATIAL_PARTITION", 1, "Queue 1 item 15 (multi-device)"),
     ("TPU.CHECKPOINT_BACKEND", "pickle",
      "Queue 1 item 8 (orbax is a JAX library: orbax checkpoints stay "
      "refused)"),
@@ -60,6 +83,13 @@ _NOT_PORTED = (
 
 def check_training_config(cfg) -> None:
     """Raise for a training option this package does not honour."""
+    if cfg.TPU.SPATIAL_PARTITION > 1:
+        # as the JAX trainer: accepting it would train plain data
+        # parallelism without saying so
+        raise ValueError(
+            "TPU.SPATIAL_PARTITION applies to DefaultPredictor serving "
+            "only; training parallelism is TPU.MODEL_PARALLEL + the data "
+            "ranks")
     for dotted, ok, where in _NOT_PORTED:
         node = cfg
         for part in dotted.split("."):
@@ -71,15 +101,24 @@ def check_training_config(cfg) -> None:
             )
 
 
+def rank_output_dir(cfg) -> str:
+    """OUTPUT_DIR on rank 0, OUTPUT_DIR/rank{r} on the others."""
+    if is_main_process():
+        return cfg.OUTPUT_DIR
+    return os.path.join(cfg.OUTPUT_DIR, f"rank{get_rank()}")
+
+
 def default_setup(cfg) -> int:
-    """Create OUTPUT_DIR, write the config there, and return the seed:
-    SEED when it is >= 0, else a random one."""
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+    """Create this rank's output directory (``rank_output_dir``), write
+    the config there, and return the seed: SEED when it is >= 0, else a
+    random one (rank 0's on every rank)."""
+    out = rank_output_dir(cfg)
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "config.yaml"), "w") as f:
         f.write(cfg.dump())
     if cfg.SEED >= 0:
         return int(cfg.SEED)
-    return int.from_bytes(os.urandom(3), "little")
+    return broadcast_seed(int.from_bytes(os.urandom(3), "little"))
 
 
 def step_generators(seed: int, step: int, device):
@@ -93,11 +132,17 @@ def step_generators(seed: int, step: int, device):
 def check_finite(step: int, losses, named_params) -> None:
     """Raise ``FloatingPointError`` naming ``step`` and the losses and
     gradients that hold a NaN or an infinity (one host sync when all are
-    finite)."""
+    finite). Under a process group every rank raises when one finds a
+    non-finite value in its losses or its shards of the gradients."""
+    from torch.distributed.tensor import DTensor
+
     tensors = list(losses.items()) + [
-        (f"grad of {n}", p.grad) for n, p in named_params
-        if p.grad is not None]
-    if bool(torch.stack([torch.isfinite(t).all() for _, t in tensors]).all()):
+        (f"grad of {n}",
+         p.grad.to_local() if isinstance(p.grad, DTensor) else p.grad)
+        for n, p in named_params if p.grad is not None]
+    finite = bool(torch.stack([torch.isfinite(t).all()
+                               for _, t in tensors]).all())
+    if not any_rank(not finite):
         return
     bad = [name for name, t in tensors if not bool(torch.isfinite(t).all())]
     raise FloatingPointError(
@@ -106,22 +151,25 @@ def check_finite(step: int, losses, named_params) -> None:
 
 
 def make_train_step(model, optimizer, scheduler=None, clip=None,
-                    seed: int = 0, debug_nans: bool = False):
+                    seed: int = 0, debug_nans: bool = False, forward=None):
     """Returns ``train_step(images, gt, step, meta=None) -> losses``: one
     SGD step of ``model`` on a batch already on the model's device; the
-    losses come back detached, with ``total_loss``. A raw batch of the
-    device-preprocessing loader (``meta`` with its ``target_hw``) is
-    resized on the device first. ``debug_nans`` checks the losses and
-    gradients before the update (``check_finite``)."""
+    losses come back detached, with ``total_loss``, averaged over the
+    ranks (the global batch's). ``forward``: the step's forward
+    (``parallel.wrap_model``'s), ``model.forward_train`` by default. A raw
+    batch of the device-preprocessing loader (``meta`` with its
+    ``target_hw``) is resized on the device first. ``debug_nans`` checks
+    the losses and gradients before the update (``check_finite``)."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     named = list(model.named_parameters())
+    forward = forward or model.forward_train
 
     def train_step(images, gt, step: int, meta=None):
         if meta is not None and "target_hw" in meta:
             images = preprocess_batch(images, meta)
         device = images.image.device
         sampling, dropout = step_generators(seed, step, device)
-        losses = model.forward_train(images, gt, sampling, dropout)
+        losses = forward(images, gt, sampling, dropout)
         total = sum(v for k, v in losses.items()
                     if not k.startswith("metric/"))
         optimizer.zero_grad(set_to_none=True)
@@ -135,7 +183,7 @@ def make_train_step(model, optimizer, scheduler=None, clip=None,
             scheduler.step()
         out = {k: v.detach() for k, v in losses.items()}
         out["total_loss"] = total.detach()
-        return out
+        return mean_over_ranks(out)
 
     return train_step
 
@@ -146,7 +194,9 @@ class Trainer:
     ``build_detection_train_loader(cfg, seed=self.seed)``. ``device``
     overrides ``cfg.MODEL.DEVICE``; ``state_dict`` gives starting weights
     (else MODEL.WEIGHTS: a Caffe2 ``.pkl``, a detectron2 or this package's
-    ``.pth`` or a JAX package ``.ckpt``, over weights from the seed)."""
+    ``.pth`` or a JAX package ``.ckpt``, over weights from the seed).
+    Under a process group each rank takes its rows of the caller's global
+    batches (``parallel.local_rows``)."""
 
     def __init__(self, cfg, data: Optional[Iterable] = None, device=None,
                  state_dict=None):
@@ -154,6 +204,15 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(cfg, device)
         self.data = data
+        world = get_world_size()
+        if cfg.SOLVER.IMS_PER_BATCH % world:
+            raise ValueError(
+                f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} must be "
+                f"divisible by the world size {world}")
+        if cfg.TPU.MODEL_PARALLEL > 1 and spans_machines():
+            raise ValueError("TPU.MODEL_PARALLEL > 1 runs on one machine "
+                             "only (a run across machines is data "
+                             "parallel)")
         self.seed = default_setup(cfg)
         model = build_model(cfg)
         init_weights(model, torch.Generator().manual_seed(self.seed))
@@ -169,14 +228,16 @@ class Trainer:
             # another shape, keep their seeded values
             maybe_load_reference_weights(cfg.MODEL.WEIGHTS, model)
         self.model = model.to(self.device).train()
+        # FSDP2 turns the parameters into shards: the optimizer comes after
+        forward = wrap_model(self.model, cfg)
         self.optimizer = build_optimizer(cfg, self.model)
         self.scheduler = build_scheduler(cfg, self.optimizer)
         self.train_step = make_train_step(
             self.model, self.optimizer, self.scheduler,
             build_gradient_clipper(cfg), self.seed,
-            debug_nans=cfg.TPU.DEBUG_NANS)
+            debug_nans=cfg.TPU.DEBUG_NANS, forward=forward)
         self.checkpointer = Checkpointer(cfg.OUTPUT_DIR)
-        self.metrics = MetricsLogger(cfg.OUTPUT_DIR)
+        self.metrics = MetricsLogger(rank_output_dir(cfg))
         self.start_iter = 0
         self.max_iter = cfg.SOLVER.MAX_ITER
         self.hooks = []  # callables hook(iteration), after each step
@@ -188,12 +249,11 @@ class Trainer:
         iteration from the newest checkpoint in OUTPUT_DIR, if any."""
         if not resume:
             return
-        loaded = self.checkpointer.load_latest(map_location=self.device)
+        loaded = self.checkpointer.load_latest(
+            map_location="cpu" if is_sharded(self.model) else self.device)
         if loaded is None:
             return
-        self.model.load_state_dict(loaded["model"])
-        if "optimizer" in loaded:
-            self.optimizer.load_state_dict(loaded["optimizer"])
+        load_training_state(self.model, self.optimizer, loaded)
         if "scheduler" in loaded:
             self.scheduler.load_state_dict(loaded["scheduler"])
         self.start_iter = int(loaded["iteration"]) + 1
@@ -216,11 +276,12 @@ class Trainer:
         loader = None
         if self.data is None:
             loader = build_detection_train_loader(
-                cfg, seed=self.seed,
+                cfg, seed=self.seed, rank=get_rank(),
+                world_size=get_world_size(),
                 pin_memory=self.device.type == "cuda")
         batches = device_batches(
-            loader if loader is not None else self._epochs(self.data),
-            self.device)
+            loader if loader is not None else
+            map(local_rows, self._epochs(self.data)), self.device)
 
         def on_term(signum, frame):
             self.preempted = True
@@ -258,6 +319,8 @@ class Trainer:
                 if profiler is not None and it + 1 == profile_stop:
                     self._stop_profile(profiler, it)
                     profiler = None
+                # every rank stops after the same step
+                self.preempted = any_rank(self.preempted)
                 if self.preempted:
                     # a consistent post-step state: resume starts at it + 1
                     self.save(it)
@@ -297,19 +360,32 @@ class Trainer:
             out, f"trace_to_iter_{last_step:07d}.json"))
 
     def save(self, iteration: int, name=None) -> None:
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self.optimizer.state_dict(),
-                 "scheduler": self.scheduler.state_dict(),
-                 "iteration": iteration}
+        """Every rank calls it (FSDP2 gathers the shards); rank 0
+        writes."""
+        state = training_state(self.model, self.optimizer, self.scheduler,
+                               iteration)
+        if not is_main_process():
+            return
         name = name or f"model_{iteration:07d}"
         if self.cfg.TPU.ASYNC_CHECKPOINT:
             self.checkpointer.save_async(state, name)
         else:
             self.checkpointer.save(state, name)
 
+    def inference_model(self):
+        """The model to evaluate: the trained one, or under FSDP2 a whole
+        copy of it on every rank (evaluation runs each rank's own batches,
+        with no collective inside a forward)."""
+        if not is_sharded(self.model):
+            return self.model
+        state = full_model_state(self.model)
+        model = build_model(self.cfg)
+        model.load_state_dict(state)
+        return model.to(self.device).eval()
+
     def test(self, cfg=None):
         """Evaluate the model on cfg.DATASETS.TEST, as the CLI does
         (DefaultTrainer.test); returns {dataset: results}."""
         from ..cli import do_test
 
-        return do_test(cfg or self.cfg, model=self.model)
+        return do_test(cfg or self.cfg, model=self.inference_model())

@@ -21,7 +21,15 @@ hands it to them (GT-leaky by design, PARITY #12); every other arch sees
 none. ``no_gt`` (TEST.NO_GT_EVAL) withholds it, so the Text family
 evaluates its serving path (an all-background map); the Semantic family
 refuses it, since its detection features are solely the painted map.
-Multi-device evaluation is ROADMAP.md Queue 1 item 15.
+
+Under a process group the batches go round-robin: batch k is rank
+``k % world``'s (a sharded loader hands the others a ``skip`` sentinel and
+never decodes them), the owner runs it whole (PCB included), and every
+rank all-gathers each batch's detections in lockstep (a foreign batch
+gathers None), so every image reaches the evaluator once on every rank
+and every rank reports the same metrics (the JAX package's
+``evaluation/evaluator.py``, ref comm.gather). Whole batches, because GT-fed
+teachers and the painting meta-archs compute across a batch.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 
 from ..data.device_preprocess import preprocess_batch
 from ..data.loader import device_batches
+from ..parallel import allgather_pyobj, get_rank, get_world_size
 
 logger = logging.getLogger(__name__)
 
@@ -77,33 +86,26 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
     start = time.perf_counter()
     steady_start, steady_images, num_images = None, 0, 0
     pcb_s = 0.0
+    world, rank = get_world_size(), get_rank()
     batches = device_batches(data_loader, device)
     try:
         with torch.inference_mode():
             for k, (images, gt, meta) in enumerate(batches):
-                if "target_hw" in meta:  # TPU.DEVICE_PREPROCESS
-                    images = preprocess_batch(images, meta)
-                det = model.forward_inference(images,
-                                              gt if feed_gt else None)
-                n = meta.get("valid_count", images.image.shape[0])
-                fields = [t[:n].cpu().numpy() for t in
-                          (det.boxes, det.scores, det.classes, det.valid)]
-                ids = meta.get("image_ids", list(range(n)))[:n]
-                if pcb is not None:
-                    t0 = time.perf_counter()
-                    names = meta.get("file_names")
-                    det_np = pcb.execute_calibration(
-                        ids, dict(zip(("boxes", "scores", "classes", "valid"),
-                                      fields)),
-                        file_names=None if names is None else names[:n])
-                    fields = [det_np[k] for k in
-                              ("boxes", "scores", "classes", "valid")]
-                    pcb_s += time.perf_counter() - t0
-                num_images += n
-                if steady_start is not None:
-                    steady_images += n
-                if evaluator is not None:
-                    evaluator.process_detections(ids, *fields)
+                entry = None
+                # a plain loader's batch of another rank is skipped too
+                if images is not None and k % world == rank:
+                    entry, secs = _run_batch(model, images, gt, meta,
+                                             feed_gt, pcb)
+                    pcb_s += secs
+                for got in allgather_pyobj(entry):
+                    if got is None:
+                        continue
+                    ids, fields = got
+                    num_images += len(ids)
+                    if steady_start is not None:
+                        steady_images += len(ids)
+                    if evaluator is not None:
+                        evaluator.process_detections(ids, *fields)
                 if k + 1 == NUM_WARMUP:
                     steady_start = time.perf_counter()
     finally:
@@ -123,6 +125,27 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
     if evaluator is None:
         return {}
     return evaluator.evaluate()
+
+
+def _run_batch(model, images, gt, meta, feed_gt: bool, pcb):
+    """One batch's (image ids, [boxes, scores, classes, valid] on the host)
+    without the padded tail, rescored by ``pcb``; and PCB's seconds."""
+    if "target_hw" in meta:  # TPU.DEVICE_PREPROCESS
+        images = preprocess_batch(images, meta)
+    det = model.forward_inference(images, gt if feed_gt else None)
+    n = meta.get("valid_count", images.image.shape[0])
+    fields = [t[:n].cpu().numpy() for t in
+              (det.boxes, det.scores, det.classes, det.valid)]
+    ids = list(meta.get("image_ids", list(range(n)))[:n])
+    if pcb is None:
+        return (ids, fields), 0.0
+    t0 = time.perf_counter()
+    names = meta.get("file_names")
+    det_np = pcb.execute_calibration(
+        ids, dict(zip(("boxes", "scores", "classes", "valid"), fields)),
+        file_names=None if names is None else names[:n])
+    fields = [det_np[k] for k in ("boxes", "scores", "classes", "valid")]
+    return (ids, fields), time.perf_counter() - t0
 
 
 # the latest run's {images, timed_images, s_per_image (warm-up left out),

@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_gather_with_grad, global_normalizer
+
 
 def scaled_dot_product_attention(q, k, v, temperature: float,
                                  key_mask: Optional[torch.Tensor] = None):
@@ -172,12 +174,28 @@ class SematicProposalAttention(nn.Module):
                       "text_feat": self.bank}
 
 
+def _keys(text_feat, value, valid, across_ranks: bool):
+    """The teacher's keys (1, L, d), values and key mask (1, L) or None:
+    this batch's ROIs, or with ``across_ranks`` every rank's in rank
+    order."""
+    if across_ranks:
+        text_feat = all_gather_with_grad(text_feat)
+        value = all_gather_with_grad(value)
+        if valid is not None:
+            valid = all_gather_with_grad(valid.to(torch.uint8)).bool()
+    return (text_feat[None], value[None],
+            None if valid is None else valid[None])
+
+
 class LVAttention(nn.Module):
     """The teacher's attention: each ROI's text feature is the projected
     embedding of its GT class (pad and ignore rows: the background
     bucket), the value proj(cat(visual, text)); every ROI of the batch
     attends over all of them as one sequence, pad rows masked out of the
-    keys. ``vkv``: the query is the value."""
+    keys. ``vkv``: the query is the value. ``across_ranks``: the keys, the
+    values and their mask are every rank's, gathered with their gradient,
+    so each ROI attends over the global batch as under the JAX package's
+    pjit; the queries stay local."""
 
     def __init__(self, input_size: int, class_embed, vkv: bool = False):
         super().__init__()
@@ -197,7 +215,8 @@ class LVAttention(nn.Module):
         torch_linear_init_(self.proj_k, generator)
         self.attention.init_params_(generator)
 
-    def forward(self, visual_feat, gt_classes, valid=None):
+    def forward(self, visual_feat, gt_classes, valid=None,
+                across_ranks: bool = False):
         c = self.class_embed.shape[0]
         embed = self.proj2(torch.cat([self.class_embed, self.w_bg], dim=0))
         text_feat = embed[torch.clamp(gt_classes.long(), 0, c)]
@@ -206,9 +225,8 @@ class LVAttention(nn.Module):
         text_out = text_feat
         text_feat, value = F.relu(text_feat), F.relu(value)
         q = value[None] if self.vkv else visual_feat[None]
-        sim2stext, _ = self.attention(
-            q, text_feat[None], value[None],
-            key_mask=None if valid is None else valid[None])
+        k, v, mask = _keys(text_feat, value, valid, across_ranks)
+        sim2stext, _ = self.attention(q, k, v, key_mask=mask)
         return {}, {"sim2stext": F.relu(sim2stext[0]), "text_feat": text_out}
 
 
@@ -236,7 +254,8 @@ class LVAttentionTextDomination(nn.Module):
         self.attention.init_params_(generator)
         torch_linear_init_(self.proj2, generator)
 
-    def forward(self, visual_feat, gt_classes, valid=None):
+    def forward(self, visual_feat, gt_classes, valid=None,
+                across_ranks: bool = False):
         c = self.class_embed.shape[0]
         vis_t = self.proj_visual(visual_feat)
         embed = torch.cat([self.class_embed, self.w_bg], dim=0)
@@ -245,9 +264,8 @@ class LVAttentionTextDomination(nn.Module):
         text_out = text_feat
         text_feat, value = F.relu(text_feat), F.relu(value)
         q = value[None] if self.vkv else vis_t[None]
-        sim2stext, _ = self.attention(
-            q, text_feat[None], value[None],
-            key_mask=None if valid is None else valid[None])
+        k, v, mask = _keys(text_feat, value, valid, across_ranks)
+        sim2stext, _ = self.attention(q, k, v, key_mask=mask)
         sim2stext = self.proj2(F.relu(sim2stext[0]))
         return {}, {"sim2stext": sim2stext, "text_feat": text_out}
 
@@ -255,8 +273,8 @@ class LVAttentionTextDomination(nn.Module):
 def loss_fn_kd_only(student_logits, labels, bg_label: int, teacher_logits,
                     temperature: float, alpha: float = 1.0, valid=None):
     """KL(teacher || student) at ``temperature``, background rows weighted
-    1.5, mean over the valid rows, times temperature^2 * alpha (ref
-    my_module.py:408-437)."""
+    1.5, mean over the valid rows (the global batch's count), times
+    temperature^2 * alpha (ref my_module.py:408-437)."""
     t = temperature
     logp_s = torch.log_softmax(student_logits / t, dim=1)
     p_t = torch.softmax(teacher_logits / t, dim=1)
@@ -265,7 +283,7 @@ def loss_fn_kd_only(student_logits, labels, bg_label: int, teacher_logits,
     kl = torch.where(labels == bg_label, kl * 1.5, kl)
     if valid is not None:
         kl = torch.where(valid, kl, torch.zeros_like(kl))
-        denom = torch.clamp(valid.sum(), min=1)
+        denom = global_normalizer(valid.sum())
     else:
         denom = labels.shape[0]
     return kl.sum() / denom * t * t * alpha

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.box_ops import clip_boxes, decode_deltas, encode_deltas, smooth_l1
+from ..parallel.collectives import global_normalizer, local_rand
 from ..ops.nms import batched_nms_fixed, top_k
 from .rpn import compact_kept
 
@@ -21,9 +22,10 @@ from .rpn import compact_kept
 def cls_dropout(x: torch.Tensor, rate: float, generator=None):
     """flax ``nn.Dropout``: each value kept with probability 1 - rate (a
     uniform draw from ``generator`` below it) and scaled by 1 / (1 - rate),
-    the others 0."""
+    the others 0. Rows are ROIs of the batch: under a process group the
+    draw covers the global batch and this rank keeps its rows."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = local_rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -69,9 +71,10 @@ def fast_rcnn_losses(pred_logits, pred_deltas, proposal_boxes, gt_boxes,
     """Softmax cross entropy (mean over valid slots) and (smooth) L1 on the
     foreground slots' class-specific deltas (sum over the valid count).
     pred_logits (R, K+1), pred_deltas (R, 4K) or (R, 4), proposal_boxes and
-    gt_boxes (R, 4), gt_classes (R,) in [0, K] (K background), valid (R,)."""
+    gt_boxes (R, 4), gt_classes (R,) in [0, K] (K background), valid (R,).
+    The valid count is the global batch's (``global_normalizer``)."""
     r = pred_logits.shape[0]
-    nvalid = torch.clamp(valid.sum(), min=1)
+    nvalid = global_normalizer(valid.sum())
     zero = torch.zeros((), dtype=pred_logits.dtype,
                        device=pred_logits.device)
     logp = torch.log_softmax(pred_logits, dim=-1)

@@ -25,6 +25,7 @@ from torch import nn
 from ..ops.box_ops import pairwise_iou
 from ..ops.gdl import decouple_layer
 from ..ops.matcher import match_proposals
+from ..parallel.collectives import global_normalizer
 from ..structures import Detections, GTInstances, ImageBatch
 from .backbone import RESNET_STAGES, ResNetC4
 from .fast_rcnn import (
@@ -379,16 +380,18 @@ class GeneralizedRCNN(nn.Module):
             bg = self.num_classes
             pred = scores.argmax(dim=1)
             fg = valid & (gt_classes >= 0) & (gt_classes < bg)
-            n_valid = torch.clamp(valid.sum(), min=1)
+            # ratios over the global batch's counts, as logged by the JAX
+            # package; the per-image means are exact under averaging
+            n_valid = global_normalizer(valid.sum())
             n_fg = fg.sum()
+            fg_norm = global_normalizer(n_fg)
             losses.update({
                 "metric/cls_accuracy":
                     (valid & (pred == gt_classes)).sum() / n_valid,
                 "metric/fg_cls_accuracy":
-                    (fg & (pred == gt_classes)).sum()
-                    / torch.clamp(n_fg, min=1),
+                    (fg & (pred == gt_classes)).sum() / fg_norm,
                 "metric/false_negative":
-                    (fg & (pred == bg)).sum() / torch.clamp(n_fg, min=1),
+                    (fg & (pred == bg)).sum() / fg_norm,
                 "metric/roi_num_fg_samples": n_fg / b,
                 "metric/roi_num_bg_samples":
                     (valid & (gt_classes == bg)).sum() / b,

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import global_normalizer
 from ..structures import GTInstances
 from .attention import (
     LVAttention,
@@ -154,8 +155,8 @@ class SematicRes5ROIHeads(Res5ROIHeads):
             ce = -logp.gather(1, safe[:, None])[:, 0]
             if valid is not None:
                 ce = torch.where(valid, ce, torch.zeros_like(ce))
-                aux["loss_attentive"] = ce.sum() / torch.clamp(
-                    valid.sum(), min=1)
+                aux["loss_attentive"] = ce.sum() / global_normalizer(
+                    valid.sum())
             else:
                 aux["loss_attentive"] = ce.mean()
         return scores, deltas, aux
@@ -199,8 +200,9 @@ class TextRes5ROIHeads(Res5ROIHeads):
 
     def forward_teacher(self, feat, gt_classes, valid, train: bool,
                         generator=None):
-        # valid keeps pad slots out of the cross-ROI attention's keys
-        _, out = self.attention(feat, gt_classes, valid)
+        # valid keeps pad slots out of the cross-ROI attention's keys; in
+        # training the keys are every rank's ROIs, as one global batch
+        _, out = self.attention(feat, gt_classes, valid, across_ranks=train)
         scores, deltas = self.box_predictor(
             feat, out["sim2stext"], train=train, generator=generator)
         return scores, deltas, out
@@ -221,8 +223,8 @@ class TextRes5ROIHeads(Res5ROIHeads):
                 per = torch.mean((s - t) ** 2, dim=-1)
             if valid is not None:
                 per = torch.where(valid, per, torch.zeros_like(per))
-                losses["loss_student_feat"] = per.sum() / torch.clamp(
-                    valid.sum(), min=1)
+                losses["loss_student_feat"] = per.sum() / global_normalizer(
+                    valid.sum())
             else:
                 losses["loss_student_feat"] = per.mean()
         scores, deltas = self.stu_box_predictor(feat, s, train=train,

@@ -10,13 +10,16 @@ choice without replacement within each group.
 Each draw takes its priorities either from a ``torch.Generator`` (uniform
 in [0, 1)) or from a tensor the caller passes in, so that a test can hand
 the port the JAX package's own draw. Works on one image or a batch (leading
-axes).
+axes). Under a process group a generator's draw over a batch is made at the
+global batch's shape and this rank keeps its rows
+(``parallel.local_rand``), so N ranks sample what one process samples.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import local_rand
 from .nms import top_k
 
 
@@ -28,8 +31,7 @@ def _ranked_take(eligible: torch.Tensor, k: int, generator=None,
     ``generator``."""
     k = min(k, eligible.shape[-1])
     if priority is None:
-        priority = torch.rand(eligible.shape, generator=generator,
-                              device=eligible.device)
+        priority = local_rand(eligible.shape, generator, eligible.device)
     pri = torch.where(eligible, priority, torch.full_like(priority, -1.0))
     vals, idx = top_k(pri, k)
     return idx, vals >= 0.0

@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from ..parallel.collectives import global_normalizer
+
 
 def dandr_loss(logits_student, logits_teacher, target, alpha, beta,
                temperature, detach_target=True):
@@ -49,9 +51,9 @@ def dandr_loss(logits_student, logits_teacher, target, alpha, beta,
     loss_fcd = p_fbd_t[:, 1] * (
         (p_fcd_t * (logp_fcd_t - logp_fcd_s)).sum(dim=1) * t * t)
 
-    def masked_mean(v, m):
+    def masked_mean(v, m):  # over the global batch's count
         return torch.where(m, v, torch.zeros_like(v)).sum() \
-            / torch.clamp(m.sum(), min=1)
+            / global_normalizer(m.sum())
 
     return (alpha * masked_mean(p_non_target_pos_teacher * loss_fbd, fg)
             + beta * masked_mean(loss_fbd, ~fg)

@@ -21,8 +21,14 @@ must match it through the plain versions as the evaluation path does; the
 evaluation path (page-locked test batches ->
 inference_on_dataset) through the kernels must match it through the plain
 versions (95% of each image's detections matched: class, IoU >= 0.9, score
-within 1e-3; AP50 within 0.5 points).
+within 1e-3; AP50 within 0.5 points). Two gloo ranks sharing the card:
+``all_gather_with_grad`` gathers and sends the gradient back exactly, and
+a data-parallel step of the tiny detector through the kernels equals one
+process's step on the global batch (losses rtol 1e-5, gradients 1e-4 of
+each tensor's largest value).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -728,3 +734,49 @@ def test_pinned_batches_reach_the_card_unchanged(card, tmp_path):
         assert torch.equal(images.image.cpu(), h_images.image)
         assert torch.equal(gt.boxes.cpu(), h_gt.boxes)
         assert meta == h_meta
+
+
+def _two_gloo_ranks_on_the_card(tasks, tmp_path):
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.launch import (
+        launch,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        dryrun_multidevice as dr,
+    )
+
+    import tempfile
+
+    store = os.path.join(tempfile.mkdtemp(dir=tmp_path), "store")
+    by_rank = launch(dr.tasks_worker, 2, dist_url=f"file://{store}",
+                     args=(tasks,), backend="gloo",
+                     devices=["cuda:0", "cuda:0"], timeout=300)
+    return [list(r) for r in zip(*by_rank)]
+
+
+def test_all_gather_with_grad_on_cuda_over_two_gloo_ranks(card, tmp_path):
+    (got,) = _two_gloo_ranks_on_the_card([("gather", {"device": "cuda:0"})],
+                                         tmp_path)
+    want = np.repeat(np.array([1.0, 2.0], np.float32), 3)[:, None] * np.ones(
+        (1, 4), np.float32)
+    for g in got:
+        np.testing.assert_array_equal(g["gathered"], want)
+        # d/dx of sum over ranks r of sum(gathered * (r + 1)) = 1 + 2
+        np.testing.assert_array_equal(g["grad"], np.full((3, 4), 3.0))
+
+
+def test_two_gloo_ranks_step_on_cuda_matches_one_process(card, tmp_path):
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        dryrun_multidevice as dr,
+    )
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kwargs in (dict(dr.TINY, **dr.SAMPLED),
+                       dict(dr.TINY, **dr.SAMPLED, **dr.text_kwargs())):
+            spec = dict(kwargs=kwargs, state=None, batch=dr.tiny_batch(2),
+                        steps=1, device="cuda:0")
+            ref = dr.step_worker(spec)
+            (got,) = _two_gloo_ranks_on_the_card([("step", spec)], tmp_path)
+            dr.check_steps(ref, got, "gloo ranks on cuda:0")
+    finally:
+        torch.backends.cudnn.deterministic = False

@@ -345,23 +345,26 @@ def test_cli_trains_evaluates_resumes_and_keeps_the_log_contract(
     assert "--> 1-shot" in table and "bAP50" in table
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--num-machines", "2"], "Queue 1 item 15"),
-    (["--num-gpus", "2"], "Queue 1 item 15"),
-    (["--opts", "TPU.SPATIAL_PARTITION", "2"], "Queue 1 item 15"),
+@pytest.mark.parametrize("argv,error,match", [
+    # more than one machine needs machine 0's address, as in the JAX CLI
+    (["--num-machines", "2"], ValueError, "dist-url"),
+    # a serving option, refused by evaluation as in the JAX package
+    (["--opts", "TPU.SPATIAL_PARTITION", "2"], ValueError,
+     "DefaultPredictor serving"),
     (["--opts", "TEST.PCB_ENABLE", "True", "TEST.PCB_MODELTYPE", "vgg"],
-     "PCB_MODELTYPE"),
-    (["--opts", "TPU.MODEL_PARALLEL", "2"], "Queue 1 item 15"),
+     NotImplementedError, "PCB_MODELTYPE"),
+    # ZeRO over one process: the model axis must divide the world
+    (["--opts", "TPU.MODEL_PARALLEL", "2"], ValueError, "world size 1"),
 ])
 def test_cli_refuses_what_is_not_ported(voc, tmp_path, monkeypatch,
-                                        root_logging, argv, match):
+                                        root_logging, argv, error, match):
     monkeypatch.setenv("FSODTF_DATASETS", voc)
     base = ["--opts", *TINY_OPTS, "SOLVER.MAX_ITER", "1",
             "OUTPUT_DIR", str(tmp_path)]
     if argv[0] == "--opts":
         base += argv[1:]
         argv = []
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         _run_cli(argv + base)
 
 

@@ -41,7 +41,9 @@ def test_importing_the_port_loads_no_jax():
             f"{PORT}.engine.server", f"{PORT}.models.box_head",
             f"{PORT}.models.modules_zoo", f"{PORT}.utils.kdloss",
             f"{PORT}.data.device_preprocess",
-            f"{PORT}.ops.custom_ops"} <= set(mods)
+            f"{PORT}.ops.custom_ops", f"{PORT}.parallel.mesh",
+            f"{PORT}.parallel.gather", f"{PORT}.parallel.collectives",
+            f"{PORT}.engine.launch"} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
 
@@ -52,7 +54,7 @@ def test_importing_the_cli_tools_and_data_loads_no_jax_and_no_pil():
     so the port imports on a machine without it."""
     tools = sorted(p.stem for p in (ROOT / PORT / "tools").glob("*.py"))
     assert {"make_synthetic_voc", "model_surgery", "serve",
-            "export_serving"} <= set(tools)
+            "export_serving", "dryrun_multidevice"} <= set(tools)
     names = [f"{PORT}.cli", f"{PORT}.dataloader", f"{PORT}.data.native_io",
              f"{PORT}.data.loader", f"{PORT}.evaluation.voc_eval",
              f"{PORT}.utils.events", f"{PORT}.engine.hooks",

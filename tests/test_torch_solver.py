@@ -394,14 +394,17 @@ def test_a_jax_pickle_checkpoint_loads_without_jax(tmp_path):
 
 
 def test_training_options_not_ported_raise_with_their_roadmap_item(tmp_path):
-    # multi-device is item 15; orbax, a JAX library, stays refused (item 8)
-    for key, value, item in (("MODEL_PARALLEL", 2, 15),
-                             ("SPATIAL_PARTITION", 2, 15),
-                             ("CHECKPOINT_BACKEND", "orbax", 8)):
+    # orbax, a JAX library, stays refused (item 8); multi-device training
+    # is ported: MODEL_PARALLEL must divide the world size (1 here) and
+    # SPATIAL_PARTITION is a serving option, as in the JAX package
+    for key, value, error, match in (
+            ("MODEL_PARALLEL", 2, ValueError, "world size 1"),
+            ("SPATIAL_PARTITION", 2, ValueError, "DefaultPredictor serving"),
+            ("CHECKPOINT_BACKEND", "orbax", NotImplementedError,
+             "ROADMAP.md Queue 1 item 8 ")):
         cfg = _tiny_cfg(tmp_path, 1)
         cfg.TPU[key] = value
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 item {item} "):
+        with pytest.raises(error, match=match):
             Trainer(cfg, _data(), device="cpu")
     cfg = _tiny_cfg(tmp_path, 1)
     cfg.MODEL.WEIGHTS = str(tmp_path / "R-101.pkl")  # missing: refused
