@@ -162,14 +162,28 @@ Phases, each of which fails the run on error:
      PCB off, sharded over the two gloo ranks through the CLI's per-rank
      body: bAP50 and nAP50 equal on both ranks and to phase 9's single
      process, each rank decoding only its own batches, launches summed
-     over the ranks equal to phase 9's, images/s.
+     over the ranks equal to phase 9's, images/s;
+ 15. the learning checks, through ``tools/overfit_map_check.main`` in
+     process: (a) ``--production --pcb``, the flagship at full width
+     (R-101 at 800x1344, FREEZE_AT 0, batch 6, bf16) trained 300 steps on
+     6 synthetic images of coloured rectangles and evaluated on them:
+     recall@0.5 >= 0.9 and AP50 > 12, then PCB on seeded ResNet weights
+     rescoring every in-window score and no other, recall kept; AP50,
+     recall, PCB's counts, the step median, peak memory and wall printed;
+     (b) phases 3, 4 and 7 on (a)'s own inputs: one more batch-6 train
+     step (NMS at 6 x 12000, ROIAlign forward and backward), one
+     evaluation batch (NMS at both sites, ROIAlign) and PCB's ROIAlign on
+     that batch's detections; (c) ``--production --head
+     TextRes5ROIHeads`` (teacher and student, the student evaluated), and
+     the kernels on one more of its steps. A failed assert of the tool
+     fails the run.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b) and 9-14, by path, PCB's apart, launches per
+main paths of phases 5, 8 (b) and 9-15, by path, PCB's apart, launches per
 train step, and the ROIAlign kernels' numbers at StandardROIHeads'
 bin_stride 1),
 then the card's name and power limit, then as the last line
@@ -3124,6 +3138,131 @@ def phase_multi_device(tmp, workflow, flagship):
         eval_images_per_s=ranks[0]["e"]["images_per_s"])
 
 
+# ---------------------------------------------------------------- phase 15
+def _overfit(root, argv, label):
+    """``overfit_map_check.main(argv)`` on the card, data under ``root``,
+    with the launch counters around it. Returns (its result, launches)."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        overfit_map_check,
+    )
+
+    torch.cuda.synchronize()
+    read = _reset_counts()
+    t0 = time.perf_counter()
+    res = overfit_map_check.main(argv, root=root)
+    torch.cuda.synchronize()
+    counts = read()
+    log(f"{label} ({' '.join(argv)}): AP50 {res['ap50']:.4f}, recall@0.5 "
+        f"{res['hit']}/{res['total']}, PCB "
+        f"{res.get('pcb_rescored', '-')} of {res.get('pcb_in_window', '-')} "
+        f"in-window scores rescored (recall with PCB "
+        f"{res.get('pcb_recall', '-')}), training {res['train_s']:.1f} s, "
+        f"step median {res['step_ms_median']:.2f} ms (the Trainer's logged "
+        f"20-step windows), peak {res['peak_gib']:.2f} GiB, wall "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    missing = [k for k in KERNEL_NAMES if counts[k] == 0]
+    if missing:
+        raise PhaseError(f"{label}: no launch of {missing}")
+    return res, counts
+
+
+def _check_next_step(tr, label):
+    """Phases 3, 4 and 7 on the inputs of one more step of ``tr`` on a
+    batch of its own loader."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        build_detection_train_loader,
+        device_batches,
+    )
+
+    loader = build_detection_train_loader(
+        tr.cfg, seed=tr.seed, pin_memory=tr.device.type == "cuda")
+    feed = device_batches(loader, tr.device)
+    try:
+        images, gt, meta = next(feed)
+    finally:
+        feed.close()
+        loader.close()
+    phase_train_inputs(capture_kernel_inputs(
+        lambda: tr.train_step(images, gt, tr.max_iter, meta)), label)
+
+
+def phase_learning(tmp):
+    """15. the learning checks: (a) the flagship overfit at full width in
+    bf16 with PCB, (b) every kernel on (a)'s own inputs (one more batch-6
+    train step, one evaluation batch, PCB on that batch's detections),
+    (c) the text head's overfit, and the kernels on one more of its steps.
+    An assert of the tools fails the run."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        build_detection_test_loader,
+        device_batches,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation.pcb import (
+        PrototypicalCalibrationBlock,
+    )
+
+    t_phase = time.perf_counter()
+    # (a)
+    flag, flag_counts = _overfit(os.path.join(tmp, "flagship"),
+                                 ["--production", "--pcb"],
+                                 "learning (a) flagship overfit")
+    tr = flag["trainer"]
+    cfg = tr.cfg
+
+    # (b) one more train step on a batch of the loader
+    _check_next_step(tr, "learning_train_path")
+
+    # one evaluation batch of the memorized set
+    model = tr.model.eval()
+    feed = device_batches(build_detection_test_loader(
+        cfg, cfg.DATASETS.TEST[0], batch_size=cli.EVAL_BATCH_SIZE,
+        prefetch=False, pin_memory=tr.device.type == "cuda"), tr.device)
+    try:
+        images, _, meta = next(feed)
+    finally:
+        feed.close()
+    with torch.inference_mode():
+        calls = capture_kernel_inputs(lambda: model.forward_inference(images))
+        det = model.forward_inference(images)
+    chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // 256)
+    phase_main_path_inputs(_plain_copies(calls), chunks, "learning_eval_path")
+    n = meta["valid_count"]
+    fields = {k: getattr(det, k)[:n].cpu().numpy()
+              for k in ("boxes", "scores", "classes", "valid")}
+    pcb = PrototypicalCalibrationBlock(cfg)
+    pcalls = capture_kernel_inputs(lambda: pcb.execute_calibration(
+        meta["image_ids"][:n], {k: v.copy() for k, v in fields.items()},
+        file_names=meta["file_names"][:n]))
+    pcalls = _plain_copies(pcalls)
+    if pcalls["nms"] or pcalls["roi_align_bwd"] or not pcalls["roi_align"]:
+        raise PhaseError(f"learning PCB: captured {len(pcalls['nms'])} NMS, "
+                         f"{len(pcalls['roi_align'])} ROIAlign and "
+                         f"{len(pcalls['roi_align_bwd'])} backward calls")
+    for i, args in enumerate(pcalls["roi_align"]):
+        check_roi_align(f"learning_pcb{i}", args, ROI_F32_TOL)
+    del model, images, det, calls, pcalls, pcb, tr, flag["trainer"]
+    torch.cuda.empty_cache()
+
+    # (c)
+    text, text_counts = _overfit(os.path.join(tmp, "text"),
+                                 ["--production", "--head",
+                                  "TextRes5ROIHeads"],
+                                 "learning (c) text-head overfit")
+    _check_next_step(text["trainer"], "learning_text_train_path")
+    del text["trainer"]
+    torch.cuda.empty_cache()
+    log(f"learning summary (phase 15): flagship AP50 {flag['ap50']:.4f}, "
+        f"recall {flag['recall']:.4f}, PCB {flag['pcb_rescored']}/"
+        f"{flag['pcb_in_window']}, step {flag['step_ms_median']:.2f} ms; "
+        f"text head AP50 {text['ap50']:.4f}, recall {text['recall']:.4f}, "
+        f"step {text['step_ms_median']:.2f} ms; phase 15 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"learning_flagship_pcb": flag_counts,
+            "learning_text_head": text_counts}, dict(flagship=flag, text=text)
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
@@ -3300,6 +3439,8 @@ def main(argv) -> int:
         std_counts, std_serve_counts, std_step, std_kernels = \
             phase_standard_heads(tmp)
         remat = phase_remat(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        learning_counts, _ = phase_learning(tmp)
     log(f"serving summary (phase 12; {card}): bf16 DefaultPredictor "
         f"requests {[round(x, 2) for x in serving['DefaultPredictor']['request_ms']]}"
         f" ms, predict_batch(8) "
@@ -3369,7 +3510,8 @@ def main(argv) -> int:
             "device_preprocess_training": dp_counts[name],
             "standard_roi_heads_training": std_counts[name],
             "standard_roi_heads_serving": std_serve_counts[name],
-            **{path: c[name] for path, c in multi_counts.items()}}
+            **{path: c[name] for path, c in multi_counts.items()},
+            **{path: c[name] for path, c in learning_counts.items()}}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
         if name != "greedy_nms":  # StandardROIHeads' launch shape

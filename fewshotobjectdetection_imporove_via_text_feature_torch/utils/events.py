@@ -43,6 +43,24 @@ class MetricsLogger:
         logger.info("iter %d  %s", iteration, msg)
 
 
+def read_metrics(output_dir: str):
+    """metrics.json's records under ``output_dir`` ([] when there is none);
+    a torn last line (a write in progress) is left out."""
+    path = os.path.join(output_dir, "metrics.json")
+    if not os.path.exists(path):
+        return []
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                try:
+                    rows.append(json.loads(line))
+                except json.JSONDecodeError:
+                    pass
+    return rows
+
+
 def print_csv_format(results: Dict[str, Dict[str, float]]):
     """The reference's copypaste contract (defrcn/evaluation/testing.py:
     7-23): per task, one 'copypaste:' line of metric names and one of
