@@ -177,13 +177,23 @@ Phases, each of which fails the run on error:
      TextRes5ROIHeads`` (teacher and student, the student evaluated), and
      the kernels on one more of its steps. A failed assert of the tool
      fails the run.
+ 16. TPU.SPATIAL_PARTITION: the flagship's backbone in S row bands with a
+     halo exchange before every layer that reads neighbouring rows, res4
+     gathered before the RPN, on seeded weights whose conv3s are not zero:
+     (a) DefaultPredictor refuses S above the visible cards with the JAX
+     package's ValueError (the bands then all run on cuda:0); (b) float32,
+     TF32 off, S 2 and 4: banded res4 within 1e-4 of the whole backbone's
+     largest value, one request and one predict_batch(4) set-matched
+     against S 1, NMS and ROIAlign launched as at S 1; (c) bf16 at S 1, 2
+     and 4: request ms (median of 10), peak memory, the halo bytes of one
+     request.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b) and 9-15, by path, PCB's apart, launches per
+main paths of phases 5, 8 (b) and 9-16, by path, PCB's apart, launches per
 train step, and the ROIAlign kernels' numbers at StandardROIHeads'
 bin_stride 1),
 then the card's name and power limit, then as the last line
@@ -3263,6 +3273,236 @@ def phase_learning(tmp):
             "learning_text_head": text_counts}, dict(flagship=flag, text=text)
 
 
+# ---------------------------------------------------------------- phase 16
+SPATIAL_BANDS = (2, 4)
+# banded res4 against the whole backbone's, float32 with TF32 off, as a
+# share of res4's largest value: the bands sum each convolution in the
+# whole image's order unless cuDNN picks another algorithm for a shorter
+# band (predicted within 2e-6); a halo slip gives errors of order 1
+SPATIAL_RES4_TOL = 1e-4
+SPATIAL_TIMED = 10
+
+
+def _residual_weights(model, seed=16):
+    """Seeded weights leave every block's conv3 at zero, which silences the
+    residual branch and would hide a slip in the 3x3s' halos: give them
+    N(0, (0.2 / sqrt(fan_in))^2), so a block adds about 4% to its
+    shortcut's variance."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.backbone.named_parameters():
+            if name.endswith("conv3.weight"):
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        * (0.2 / p[0].numel() ** 0.5))
+
+
+def _with_bands(pred, cfg, bands):
+    """``pred``'s model with its backbone in ``bands`` row bands: through
+    ``DefaultPredictor`` on ``cuda:0..bands-1`` where the machine has the
+    cards, else every band on the predictor's card (the predictor refuses
+    S above the visible cards, so the attribute is set by hand)."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+    )
+
+    pred.model.spatial_devices = None
+    if bands == 1:
+        return pred
+    if torch.cuda.device_count() >= bands:
+        c = cfg.clone()
+        c.TPU.SPATIAL_PARTITION = bands
+        return DefaultPredictor(c, state_dict=pred.model.state_dict())
+    pred.model.spatial_devices = [pred.device] * bands
+    return pred
+
+
+def phase_spatial(card):
+    """16. TPU.SPATIAL_PARTITION: one image's R-101 backbone in S row bands
+    with a halo exchange before every layer that reads neighbouring rows,
+    res4 gathered before the RPN. (a) DefaultPredictor at S above the
+    visible cards refuses with the JAX package's ValueError; (b) float32,
+    TF32 off, S 2 and 4: banded res4 against the whole backbone's, then one
+    request and one predict_batch(4) set-matched against S 1, launches
+    counted; (c) bf16, S 1, 2 and 4: request ms (median of 10 after 2
+    warm-ups), peak memory, the halo bytes and exchanges of one request,
+    the detections' matched share and res4's error against S 1 (reported
+    only). Returns the banded runs' launches and the numbers."""
+    import statistics
+
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.predictor import (
+        preprocess_single_image,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.parallel.spatial import (
+        HALO,
+        banded_backbone,
+    )
+
+    t_phase = time.perf_counter()
+    cfg32, cfg16 = _cfg("float32"), _cfg("bfloat16")
+    ncls = cfg32.MODEL.ROI_HEADS.NUM_CLASSES
+    chunks = -(-cfg32.MODEL.RPN.POST_NMS_TOPK_TEST // cfg32.TPU.ROI_CHUNK)
+    ndev = torch.cuda.device_count()
+    out = {"res4_err": {}, "f32_matched": {}, "request_ms": {},
+           "peak_gib": {}, "work_gib": {}, "halo": {}, "bf16_matched": {},
+           "bf16_res4_err": {}, "refused": []}
+
+    # (a)
+    for bands in SPATIAL_BANDS:
+        if ndev >= bands:
+            continue
+        c = cfg32.clone()
+        c.TPU.SPATIAL_PARTITION = bands
+        try:
+            DefaultPredictor(c)
+        except ValueError as e:
+            if "TPU.SPATIAL_PARTITION" not in str(e):
+                raise PhaseError(f"spatial: S {bands} refused with {e}")
+            out["refused"].append(str(e))
+        else:
+            raise PhaseError(f"spatial: DefaultPredictor took S {bands} on "
+                             f"{ndev} card(s)")
+
+    # (b) float32, TF32 off, deterministic convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    images = _synthetic_images(16, 5)
+    singles, batch = images[:1], images[1:]
+    forwards = len(singles) + 1
+    want = {"greedy_nms": 2 * forwards,
+            "roi_align_v2_fwd": chunks * forwards, "roi_align_v2_bwd": 0}
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    pred = DefaultPredictor(cfg32, seed=0)
+    _residual_weights(pred.model)
+    ref, _, _ = _drive(pred, singles, batch)
+    # the whole backbone's run again: how far the unsplit path's own
+    # detections move between two runs (ties at the top-100 cut)
+    again, _, _ = _drive(pred, singles, batch)
+    out["f32_matched"][1] = [min(_match_fraction(g, r),
+                                 _match_fraction(r, g))
+                             for g, r in zip(again, ref)]
+
+    def res4_err(whole_pred, p):
+        """``p``'s banded res4 against ``whole_pred``'s whole backbone on
+        the request's image and on the batch's four, as a share of the
+        largest value."""
+        errs = []
+        for ims in (singles, batch):
+            x = whole_pred.model.normalize(torch.cat([
+                preprocess_single_image(p.cfg, im).image
+                for im in ims]).cuda())
+            with torch.inference_mode():
+                whole = whole_pred.model.backbone(x)["res4"]
+                res4 = banded_backbone(p.model.backbone, x,
+                                       p.model.spatial_devices)
+            errs.append(float((res4.to(whole.device) - whole).abs().max())
+                        / float(whole.abs().max()))
+        return max(errs)
+
+    for bands in SPATIAL_BANDS:
+        p = _with_bands(pred, cfg32, bands)
+        err = res4_err(pred, p)
+        out["res4_err"][bands] = err
+        if not err <= SPATIAL_RES4_TOL:
+            raise PhaseError(f"spatial: banded res4 at S {bands} off by "
+                             f"{err:.3e} of its largest value")
+        read = _reset_counts()
+        HALO.reset()
+        got, _, _ = _drive(p, singles, batch)
+        counts = read()
+        if counts != want or HALO.gathers != forwards:
+            raise PhaseError(f"spatial S {bands}: launches {counts}, "
+                             f"expected {want}; {HALO.gathers} res4 gathers")
+        _check_outputs(got, images, ncls)
+        out["f32_matched"][bands] = _set_match(got, ref,
+                                               f"spatial float32 S {bands}")
+        for k in total:
+            total[k] += counts[k]
+        log(f"spatial float32 S {bands}: res4 error {err:.3e} of its largest"
+            f" value; detections {[len(o['boxes']) for o in got]}"
+            f" vs S 1 {[len(o['boxes']) for o in ref]}, matched share "
+            f"{[round(f, 4) for f in out['f32_matched'][bands]]}; launches "
+            f"{counts}")
+    torch.backends.cudnn.deterministic = False
+    state = pred.model.state_dict()
+    del pred, p
+    torch.cuda.empty_cache()
+
+    # (c) bfloat16, the default COMPUTE_DTYPE: the timed requests
+    pred = DefaultPredictor(cfg16, state_dict=state)
+    del state
+    image = images[0]
+    for bands in (1, *SPATIAL_BANDS):
+        p = _with_bands(pred, cfg16, bands)
+        for _ in range(2):
+            p(image)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        read = _reset_counts()
+        secs = []
+        for _ in range(SPATIAL_TIMED):
+            t0 = time.perf_counter()
+            got = p(image)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = read()
+        out["peak_gib"][bands] = torch.cuda.max_memory_allocated() / 2**30
+        out["work_gib"][bands] = out["peak_gib"][bands] - resident / 2**30
+        out["request_ms"][bands] = statistics.median(secs) * 1e3
+        _check_outputs([got], [image], ncls)
+        if counts != {k: v * SPATIAL_TIMED // forwards
+                      for k, v in want.items()}:
+            raise PhaseError(f"spatial bf16 S {bands}: launches {counts}")
+        if bands == 1:
+            # bf16's own spread: the same image at batch 2 (another cuDNN
+            # algorithm) against batch 1
+            base = got
+            twice = p.predict_batch([image, image])[0]
+            out["bf16_matched"][1] = min(_match_fraction(twice, base),
+                                         _match_fraction(base, twice))
+            continue
+        for k in total:
+            total[k] += counts[k]
+        HALO.reset()
+        p(image)
+        out["halo"][bands] = dict(bytes=HALO.bytes, rows=HALO.rows,
+                                  exchanges=HALO.exchanges,
+                                  halo_layers=HALO.halo_layers)
+        out["bf16_matched"][bands] = min(_match_fraction(got, base),
+                                         _match_fraction(base, got))
+        out["bf16_res4_err"][bands] = res4_err(pred, p)
+    pred.model.spatial_devices = None
+    del pred, p
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"spatial partition summary (phase 16; {card}): {ndev} card(s), "
+        f"refused {out['refused']}; float32 res4 error "
+        f"{ {k: f'{v:.3e}' for k, v in out['res4_err'].items()} } of its "
+        f"largest value; bf16 request ms (median of {SPATIAL_TIMED}) "
+        f"{ {k: round(v, 2) for k, v in out['request_ms'].items()} }, peak "
+        f"GiB on cuda:0 "
+        f"{ {k: round(v, 3) for k, v in out['peak_gib'].items()} } (above "
+        f"the resident weights "
+        f"{ {k: round(v, 3) for k, v in out['work_gib'].items()} }), "
+        f"halo a request {out['halo']}, float32 detections matched against "
+        f"S 1 (S 1: a second run) "
+        f"{ {k: min(v) for k, v in out['f32_matched'].items()} }"
+        f", bf16 (S 1: batch 2 against batch 1) "
+        f"{ {k: round(v, 4) for k, v in out['bf16_matched'].items()} } "
+        f"(res4 error "
+        f"{ {k: f'{v:.3e}' for k, v in out['bf16_res4_err'].items()} }); "
+        f"launches {total}; phase 16 took {out['seconds']:.1f} s")
+    return total, out
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
@@ -3441,6 +3681,7 @@ def main(argv) -> int:
         remat = phase_remat(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         learning_counts, _ = phase_learning(tmp)
+    spatial_counts, _ = phase_spatial(card)
     log(f"serving summary (phase 12; {card}): bf16 DefaultPredictor "
         f"requests {[round(x, 2) for x in serving['DefaultPredictor']['request_ms']]}"
         f" ms, predict_batch(8) "
@@ -3511,7 +3752,8 @@ def main(argv) -> int:
             "standard_roi_heads_training": std_counts[name],
             "standard_roi_heads_serving": std_serve_counts[name],
             **{path: c[name] for path, c in multi_counts.items()},
-            **{path: c[name] for path, c in learning_counts.items()}}
+            **{path: c[name] for path, c in learning_counts.items()},
+            "spatial_partition_serving": spatial_counts[name]}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
         if name != "greedy_nms":  # StandardROIHeads' launch shape

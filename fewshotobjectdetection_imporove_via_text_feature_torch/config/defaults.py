@@ -279,9 +279,10 @@ _C.TPU.HOST_SPACE_TO_DEPTH = True
 _C.TPU.DEVICE_PREPROCESS = False
 _C.TPU.RAW_BUCKETS = ((384, 512), (512, 512), (512, 768), (768, 1024))
 # Spatial partitioning for low-latency serving (DefaultPredictor only):
-# shard the image/feature H axis over S chips so the backbone of ONE
-# image runs spatially split (GSPMD conv halo exchanges); res4 gathers
-# back before the RPN/ROI stages. Cuts batch-1 latency when a single
+# split the image's H axis over S devices so the backbone of ONE
+# image runs in row bands (halo rows exchanged before every layer that
+# reads neighbouring rows, parallel/spatial.py); res4 gathers back before
+# the RPN/ROI stages. Cuts batch-1 latency when a single
 # image underfills the chip. 1 = off. The reference has no latency-
 # scaling story (DDP only helps throughput).
 _C.TPU.SPATIAL_PARTITION = 1

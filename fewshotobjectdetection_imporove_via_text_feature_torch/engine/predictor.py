@@ -16,6 +16,8 @@ from ..checkpoint.convert import init_weights
 from ..checkpoint.torch_import import maybe_load_reference_weights
 from ..data.mapper import pick_bucket, resize_shortest_edge_size
 from ..models import build_model
+from ..parallel.mesh import get_world_size
+from ..parallel.spatial import STRIDE, band_modules
 from ..structures import ImageBatch
 
 
@@ -60,6 +62,33 @@ def resolve_device(cfg, device=None) -> torch.device:
     return dev
 
 
+def spatial_devices(cfg, device: torch.device):
+    """The devices of the backbone's row bands under
+    ``TPU.SPATIAL_PARTITION`` S > 1 (None at S 1): on CUDA S visible cards
+    from ``device`` on, on the CPU S bands on the CPU. Refuses, as the JAX
+    package does, a run of more than one process and fewer devices than S,
+    and more bands than res4 rows in the smallest bucket."""
+    sp = cfg.TPU.SPATIAL_PARTITION
+    if sp <= 1:
+        return None
+    if get_world_size() > 1:
+        raise ValueError("TPU.SPATIAL_PARTITION is single-process only "
+                         "(detections are fetched to this process)")
+    rows = min(-(-min(b) // STRIDE) for b in cfg.TPU.IMAGE_BUCKETS)
+    if sp > rows:
+        raise ValueError(f"TPU.SPATIAL_PARTITION {sp}: the smallest bucket "
+                         f"has {rows} res4 rows, fewer than the bands")
+    if device.type == "cpu":
+        return [device] * sp
+    first = torch.cuda.current_device() if device.index is None \
+        else device.index
+    have = torch.cuda.device_count() - first
+    if have < sp:
+        raise ValueError(f"TPU.SPATIAL_PARTITION {sp} needs {sp} devices, "
+                         f"have {have}")
+    return [torch.device("cuda", first + i) for i in range(sp)]
+
+
 class DefaultPredictor:
     """cfg -> model + weights; ``__call__(image BGR HxWx3 uint8)`` -> dict
     of numpy detections in original-image coordinates.
@@ -68,6 +97,11 @@ class DefaultPredictor:
     from ``checkpoint.state_dict_from_jax_params``. Without it the model
     gets the JAX package's initialisers drawn from ``seed``, then
     ``MODEL.WEIGHTS`` when it names a file (``.pkl``, ``.pth``, ``.ckpt``).
+
+    ``TPU.SPATIAL_PARTITION`` S > 1 runs each image's backbone in S row
+    bands, one a device of ``spatial_devices`` (``parallel/spatial.py``),
+    in ``__call__`` and ``predict_batch`` alike; the rest of the model runs
+    on ``device``.
     """
 
     # batch sizes predict_batch runs at (images padded up to the next one)
@@ -76,11 +110,7 @@ class DefaultPredictor:
     def __init__(self, cfg, device=None, state_dict=None, seed: int = 0):
         self.cfg = cfg
         self.device = resolve_device(cfg, device)
-        if cfg.TPU.SPATIAL_PARTITION > 1:
-            raise NotImplementedError(
-                "TPU.SPATIAL_PARTITION > 1: multi-GPU serving is ROADMAP "
-                "Queue 1 item 15 (multi-device)"
-            )
+        devices = spatial_devices(cfg, self.device)
         model = build_model(cfg)
         if state_dict is not None:
             model.load_state_dict(state_dict)
@@ -88,6 +118,10 @@ class DefaultPredictor:
             init_weights(model, torch.Generator().manual_seed(seed))
             maybe_load_reference_weights(cfg.MODEL.WEIGHTS, model)
         self.model = model.to(self.device).eval()
+        if devices is not None:
+            # the other bands' copies of the backbone, made once here
+            band_modules(self.model.backbone, devices)
+            self.model.spatial_devices = devices
 
     @torch.inference_mode()
     def _run(self, batch: ImageBatch):

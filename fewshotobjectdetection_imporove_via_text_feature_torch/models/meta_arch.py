@@ -26,6 +26,7 @@ from ..ops.box_ops import pairwise_iou
 from ..ops.gdl import decouple_layer
 from ..ops.matcher import match_proposals
 from ..parallel.collectives import global_normalizer
+from ..parallel.spatial import banded_backbone
 from ..structures import Detections, GTInstances, ImageBatch
 from .backbone import RESNET_STAGES, ResNetC4
 from .fast_rcnn import (
@@ -170,6 +171,9 @@ class GeneralizedRCNN(nn.Module):
         self.pixel_std = tuple(pixel_std)
         self.res2_out_channels = res2_out_channels
         self.dtype = dtype
+        # TPU.SPATIAL_PARTITION (serving): the devices of the backbone's row
+        # bands, set by DefaultPredictor; None runs the backbone whole
+        self.spatial_devices = None
 
         self.backbone = ResNetC4(
             depth=depth, stem_out_channels=stem_out_channels,
@@ -265,8 +269,15 @@ class GeneralizedRCNN(nn.Module):
 
     def compute_features(self, images: ImageBatch, gt=None):
         """(res4 (B, C, H, W), {"res2", "res3", "res4"}); ``gt`` is for the
-        painting meta-archs, this one ignores it."""
-        feats = self.backbone(self.normalize(images.image))
+        painting meta-archs, this one ignores it. With ``spatial_devices``
+        the backbone runs in row bands and only res4 comes back, gathered
+        on the first of them (``parallel/spatial.py``)."""
+        x = self.normalize(images.image)
+        if self.spatial_devices is not None:
+            feats = {"res4": banded_backbone(self.backbone, x,
+                                             self.spatial_devices)}
+        else:
+            feats = self.backbone(x)
         feat = feats["res4"]
         if self.freeze_backbone:
             feat = feat.detach()

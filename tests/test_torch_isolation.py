@@ -43,7 +43,7 @@ def test_importing_the_port_loads_no_jax():
             f"{PORT}.data.device_preprocess",
             f"{PORT}.ops.custom_ops", f"{PORT}.parallel.mesh",
             f"{PORT}.parallel.gather", f"{PORT}.parallel.collectives",
-            f"{PORT}.engine.launch"} <= set(mods)
+            f"{PORT}.parallel.spatial", f"{PORT}.engine.launch"} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
 
@@ -109,8 +109,19 @@ def test_predictor_refuses_to_leave_cuda_quietly():
     cfg.MODEL.WEIGHTS = ""
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DefaultPredictor(cfg)
+    # spatial partitioning asks for no other device either: on CUDA its
+    # bands need the cards, on the CPU every band runs on the CPU
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.predictor import (
+        spatial_devices,
+    )
+
     cfg.TPU.SPATIAL_PARTITION = 2
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DefaultPredictor(cfg)
+    assert spatial_devices(cfg, torch.device("cpu")) == [
+        torch.device("cpu")] * 2
+    cfg.TPU.SPATIAL_PARTITION = 10_000
+    with pytest.raises(ValueError, match="TPU.SPATIAL_PARTITION"):
         DefaultPredictor(cfg, device="cpu")
 
 

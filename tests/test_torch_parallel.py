@@ -344,7 +344,7 @@ def test_sharded_test_loader_is_the_jax_packages(voc, rank):
 def test_spatial_partition_raises_what_the_jax_package_raises(where):
     """A serving option: training and evaluation refuse it as the JAX
     package does (ValueError, DefaultPredictor serving only), export as not
-    exportable; only DefaultPredictor still names its ROADMAP item."""
+    exportable; DefaultPredictor runs it (tests/test_torch_spatial_partition.py)."""
     from fewshotobjectdetection_imporove_via_text_feature_torch import cli
     from fewshotobjectdetection_imporove_via_text_feature_torch.engine.export import (
         export_inference,
@@ -367,13 +367,23 @@ def test_spatial_partition_raises_what_the_jax_package_raises(where):
         call()
 
 
-def test_spatial_partition_stays_queued_for_the_predictor():
+def test_spatial_partition_stays_queued_for_the_predictor(monkeypatch):
+    """DefaultPredictor takes the option, as the JAX package's does: on the
+    CPU its bands all run on the CPU; it refuses a run of more than one
+    process with that package's ValueError."""
+    import torch.distributed as dist
+
     from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
         DefaultPredictor,
     )
+    from tests.test_torch_predictor import _tiny
 
-    cfg = get_cfg()
-    cfg.MODEL.WEIGHTS = ""
+    cfg = _tiny(get_cfg())
     cfg.TPU.SPATIAL_PARTITION = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    pred = DefaultPredictor(cfg, device="cpu")
+    assert pred.model.spatial_devices == [torch.device("cpu")] * 2
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    with pytest.raises(ValueError,
+                       match="TPU.SPATIAL_PARTITION is single-process only"):
         DefaultPredictor(cfg, device="cpu")
