@@ -188,12 +188,28 @@ Phases, each of which fails the run on error:
      and 4: request ms (median of 10), peak memory, the halo bytes of one
      request.
 
+ 17. held-out generalization: (a) the flagship chain of the port's VOC
+     gate (``…_torch/tools/check_generalization.sh``, legs base, control,
+     ft and stats, with the JAX package's floors and margins) as a
+     subprocess on the card: a non-zero exit or a missing ``PAIRED STATS
+     OK`` / ``GENERALIZATION GATE PASSED`` fails the run; base AP50,
+     control nAP50, ft bAP50/nAP50, drop, gain and each leg's wall time
+     printed, the launches of its CLI processes read from the files they
+     append at exit (``FSODTF_LAUNCH_COUNTS``) and held to the steps and
+     evaluation batches; (b) phases 3, 4 and 7 on the inputs of one step
+     of the gate's base config, at the gate's tiny profile and at full
+     R-101 width (its width options dropped, its 288x384 bucket and data
+     kept), float32; (c) ``…_torch/tools/train_pcb_extractor`` at its
+     defaults on the gate's data: final accuracy >= 0.7, then
+     ``PrototypicalCalibrationBlock`` loads the ``.pth`` with its 522
+     tensors matched.
+
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b) and 9-16, by path, PCB's apart, launches per
+main paths of phases 5, 8 (b) and 9-17, by path, PCB's apart, launches per
 train step, and the ROIAlign kernels' numbers at StandardROIHeads'
 bin_stride 1),
 then the card's name and power limit, then as the last line
@@ -1290,18 +1306,20 @@ def phase_train_bf16(tmp, warmup=2, timed=10, profile_dir=None, opts=(),
             lambda: trainer.train_step(images, gt, steps + 1))
 
 
-def phase_train_inputs(calls, label="train_path", launches=(1, 2, 2)):
+def phase_train_inputs(calls, label="train_path", launches=(1, 2, 2),
+                       fwd_tol=ROI_BF16_TOL):
     """(c) phases 3, 4 and 7 again on the training path's own inputs: the
     RPN's sorted proposals (NMS), both 256-ROI chunks of sampled ROIs on the
     res4 map (ROIAlign forward) and their gradients (backward), as one more
     bf16 step of (b) handed them over (phase 13: StandardROIHeads' one
-    launch each at P 7, bin_stride 1, ``launches`` (1, 1, 1)). Returns the
-    forward and backward checks' numbers."""
+    launch each at P 7, bin_stride 1, ``launches`` (1, 1, 1); phase 17: a
+    float32 step, ``fwd_tol`` ROI_F32_TOL). Returns the forward and
+    backward checks' numbers."""
     got = {k: len(v) for k, v in calls.items()}
     if got != dict(zip(("nms", "roi_align", "roi_align_bwd"), launches)):
         raise PhaseError(f"{label}: captured kernel calls {got}")
     nms = check_nms(f"{label}_rpn", *calls["nms"][0])
-    fwd = [check_roi_align(f"{label}_chunk{i}", args, ROI_BF16_TOL)
+    fwd = [check_roi_align(f"{label}_chunk{i}", args, fwd_tol)
            for i, args in enumerate(calls["roi_align"])]
     bwd = [check_roi_align_bwd(f"{label}_chunk{i}", args)
            for i, args in enumerate(calls["roi_align_bwd"])]
@@ -3177,9 +3195,9 @@ def _overfit(root, argv, label):
     return res, counts
 
 
-def _check_next_step(tr, label):
+def _check_next_step(tr, label, **kw):
     """Phases 3, 4 and 7 on the inputs of one more step of ``tr`` on a
-    batch of its own loader."""
+    batch of its own loader (``kw``: ``phase_train_inputs``'s)."""
     from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
         build_detection_train_loader,
         device_batches,
@@ -3193,8 +3211,8 @@ def _check_next_step(tr, label):
     finally:
         feed.close()
         loader.close()
-    phase_train_inputs(capture_kernel_inputs(
-        lambda: tr.train_step(images, gt, tr.max_iter, meta)), label)
+    return phase_train_inputs(capture_kernel_inputs(
+        lambda: tr.train_step(images, gt, tr.max_iter, meta)), label, **kw)
 
 
 def phase_learning(tmp):
@@ -3503,6 +3521,221 @@ def phase_spatial(card):
     return total, out
 
 
+# ---------------------------------------------------------------- phase 17
+GATE_SCRIPT = os.path.join(
+    ROOT, "fewshotobjectdetection_imporove_via_text_feature_torch", "tools",
+    "check_generalization.sh")
+GATE_LEGS = "base,control,ft,stats"
+# the tiny profile's width options, dropped for (b)'s full-width step
+GATE_WIDTH_KEYS = ("MODEL.RESNETS.DEPTH", "MODEL.RESNETS.STEM_OUT_CHANNELS",
+                   "MODEL.RESNETS.RES2_OUT_CHANNELS",
+                   "MODEL.RESNETS.WIDTH_PER_GROUP")
+# the base leg's solver options (check_generalization.sh, base leg)
+GATE_BASE_OPTS = ("MODEL.WEIGHTS", "", "SOLVER.MAX_ITER", "1200",
+                  "SOLVER.STEPS", "(900,1080)", "SOLVER.BASE_LR", "0.01",
+                  "SOLVER.WARMUP_ITERS", "100")
+
+
+def gate_tiny_opts():
+    """The gate script's TINY_OPTS on the card as a KEY VALUE list, read
+    from the script itself (its own default seed)."""
+    import re
+
+    with open(GATE_SCRIPT) as f:
+        text = re.search(r'TINY_OPTS="(.*?)"', f.read(), re.S).group(1)
+    text = text.replace("${DEVICE}", "cuda").replace("${GEN_SEED:-5}", "5")
+    return text.split()
+
+
+def _gate_default(name):
+    """A knob's default in the gate script (``NAME=${NAME:-N}``)."""
+    import re
+
+    with open(GATE_SCRIPT) as f:
+        return int(re.search(rf"^{name}=\$\{{{name}:-(\d+)\}}", f.read(),
+                             re.M).group(1))
+
+
+def _gate_metric(log_path, index):
+    """The script's own scrape: a field of the last copypaste row."""
+    rows = [ln for ln in open(log_path) if "copypaste:" in ln and "," in ln]
+    return float(rows[-1].split("copypaste:")[-1].strip().split(",")[index])
+
+
+def _run_gate(save_dir, counts_file):
+    """(a) The script as a subprocess on the card; its stdout streamed to
+    ``save_dir``.log with each line's arrival time. Returns (wall seconds
+    by leg, total seconds)."""
+    env = dict(os.environ, DEVICE="cuda", GEN_LEGS=GATE_LEGS,
+               FSODTF_LAUNCH_COUNTS=counts_file)
+    leg_starts, t0 = [], time.perf_counter()
+    with open(save_dir + ".log", "w") as out:
+        proc = subprocess.Popen(["bash", GATE_SCRIPT, save_dir], cwd=ROOT,
+                                env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        for line in proc.stdout:
+            out.write(line)
+            if line.startswith("=== "):
+                leg_starts.append((line.strip("= \n"),
+                                   time.perf_counter()))
+        rc = proc.wait()
+    total = time.perf_counter() - t0
+    with open(save_dir + ".log") as f:
+        text = f.read()
+    if rc != 0 or "PAIRED STATS OK" not in text or \
+            "GENERALIZATION GATE PASSED" not in text:
+        raise PhaseError(f"generalization gate: exit {rc}; last output:\n"
+                         f"{text[-3000:]}")
+    ends = [t for _, t in leg_starts[1:]] + [t0 + total]
+    return {name: end - start
+            for (name, start), end in zip(leg_starts, ends)}, total
+
+
+def phase_generalization(tmp, card):
+    """17. (a) the VOC gate's flagship chain on the card with its floors,
+    (b) the kernels on the gate's own step inputs, tiny and at full width,
+    (c) the PCB extractor trained and loaded. Returns ({path: launches},
+    numbers)."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint import (
+        load_torch_state,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        register_all,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation.archs import (
+        torchvision_r101_manifest,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.evaluation.pcb import (
+        PrototypicalCalibrationBlock,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        train_pcb_extractor,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the counts of the CLI processes, each appended at its exit: the
+    # file starts empty just before the run, and is read just after
+    save = os.path.join(tmp, "gate")
+    counts_file = os.path.join(tmp, "gate_launches.jsonl")
+    open(counts_file, "w").close()
+    legs, total_s = _run_gate(save, counts_file)
+    runs = [json.loads(ln) for ln in open(counts_file) if ln.strip()]
+    counts = {k: sum(r[k] for r in runs) for k in KERNEL_NAMES}
+    out["legs_s"], out["gate_s"] = legs, total_s
+    base_log = os.path.join(save, "base1.log")
+    ft_log = os.path.join(save, "10shot_seed0.log")
+    ctrl_log = os.path.join(save, "control.log")
+    out["base_ap50"] = _gate_metric(base_log, 1)
+    out["control_nap50"] = _gate_metric(ctrl_log, 7)
+    out["ft_bap50"] = _gate_metric(ft_log, 4)
+    out["ft_nap50"] = _gate_metric(ft_log, 7)
+    out["drop"] = out["base_ap50"] - out["ft_bap50"]
+    out["gain"] = out["ft_nap50"] - out["control_nap50"]
+    # the launches the CLI runs owe: one NMS and one 256-ROI chunk forward
+    # and backward a training step (8 images x 32 ROIs), two NMS and one
+    # chunk an evaluation batch of 32
+    cfg = get_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(gate_tiny_opts())
+    steps = _gate_default("ITERS_BASE") + _gate_default("ITERS_FT")
+    evals = sum(open(p).read().count("copypaste: Task: bbox")
+                for p in (base_log, ctrl_log, ft_log))
+    with open(os.path.join(save, "datasets", "VOC2007", "ImageSets",
+                           "Main", "test.txt")) as f:
+        test_images = len([ln for ln in f if ln.strip()])
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+
+    batches = evals * -(-test_images // cli.EVAL_BATCH_SIZE)
+    step_chunks = -(-cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+                    // cfg.TPU.ROI_CHUNK)
+    eval_chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // cfg.TPU.ROI_CHUNK)
+    want = {"greedy_nms": steps + 2 * batches,
+            "roi_align_v2_fwd": step_chunks * steps + eval_chunks * batches,
+            "roi_align_v2_bwd": step_chunks * steps}
+    if len(runs) != 3 or counts != want:
+        raise PhaseError(f"generalization gate: {len(runs)} CLI processes "
+                         f"reported launches {counts}, expected {want} "
+                         f"({steps} steps, {batches} evaluation batches)")
+    log(f"generalization (a) gate legs {GATE_LEGS} ({card}): base AP50 "
+        f"{out['base_ap50']:.2f} (floor 60), control nAP50 "
+        f"{out['control_nap50']:.2f}, ft bAP50 {out['ft_bap50']:.2f} "
+        f"(floor 70) / nAP50 {out['ft_nap50']:.2f} (floor 30), drop "
+        f"{out['drop']:.2f} (margin 12), gain {out['gain']:.2f} (margin "
+        f"20); wall by leg "
+        f"{ {k: round(v, 1) for k, v in legs.items()} } s, {total_s:.1f} s "
+        f"in all; launches {counts} as expected")
+
+    # (b) one step of the gate's base config on the gate's data, at the tiny
+    # profile and at full R-101 width, float32
+    datasets = os.path.join(save, "datasets")
+    os.environ["FSODTF_DATASETS"] = datasets
+    register_all(datasets)
+    tiny = gate_tiny_opts()
+    pairs = list(zip(tiny[0::2], tiny[1::2]))
+    wide = [x for k, v in pairs if k not in GATE_WIDTH_KEYS for x in (k, v)]
+    out["steps"] = {}
+    for label, opts in (("tiny", tiny), ("full_width", wide)):
+        cfg = get_cfg()
+        cfg.merge_from_file(CONFIG)
+        cfg.merge_from_list([*opts, *GATE_BASE_OPTS, "OUTPUT_DIR",
+                             os.path.join(tmp, f"step_{label}")])
+        tr = Trainer(cfg)
+        fwd, bwd = _check_next_step(tr, f"generalization_{label}_step",
+                                    launches=(1, 1, 1), fwd_tol=ROI_F32_TOL)
+        out["steps"][label] = dict(
+            depth=cfg.MODEL.RESNETS.DEPTH,
+            fwd_err=fwd[0]["max_abs_err"], bwd_err=bwd[0]["max_abs_err"])
+        del tr
+        torch.cuda.empty_cache()
+    log(f"generalization (b) kernels on the gate step's own inputs: "
+        f"{out['steps']}")
+
+    # (c) the extractor at its defaults on the gate's data (the tool exits
+    # when its accuracy is under its --acc-floor, 0.7), then loaded
+    pth = os.path.join(tmp, "pcb_extractor.pth")
+    try:
+        ext = train_pcb_extractor.main(["--data-root", datasets,
+                                        "--out", pth])
+    except SystemExit as e:
+        raise PhaseError(f"PCB extractor: {e}") from e
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(
+        save, "cfgs", "voc", "defrcn_gfsod_r101_novel1_10shot_seed0.yaml"))
+    cfg.merge_from_list([*tiny, "TEST.PCB_MODELPATH", pth])
+    t0 = time.perf_counter()
+    pcb = PrototypicalCalibrationBlock(cfg)
+    pcb_s = time.perf_counter() - t0
+    saved = load_torch_state(pth)
+    loaded = pcb.model.state_dict()
+    matched = sum(torch.equal(loaded[k].cpu(), torch.as_tensor(v))
+                  for k, v in saved.items() if k in loaded)
+    if matched != len(torchvision_r101_manifest()) or \
+            len(saved) != matched:
+        raise PhaseError(f"PCB loaded {matched} of {len(saved)} tensors")
+    out["extractor"] = dict(ext, pcb_init_s=pcb_s, matched=matched)
+    del pcb
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"generalization summary (phase 17; {card}): gate base AP50 "
+        f"{out['base_ap50']:.2f}, control nAP50 {out['control_nap50']:.2f},"
+        f" ft bAP50 {out['ft_bap50']:.2f} / nAP50 {out['ft_nap50']:.2f}, "
+        f"drop {out['drop']:.2f}, gain {out['gain']:.2f}, gate "
+        f"{total_s:.1f} s; PCB extractor {ext['crops']} crops, final "
+        f"accuracy {ext['final_acc']:.3f}, loss {ext['first_loss']:.4f} -> "
+        f"{ext['last_loss']:.4f}, {ext['iters']} steps in "
+        f"{ext['train_s']:.1f} s, PCB built with it in {pcb_s:.1f} s, "
+        f"{matched} tensors matched; phase 17 took {out['seconds']:.1f} s")
+    return {"generalization_gate": counts}, out
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
@@ -3682,6 +3915,8 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         learning_counts, _ = phase_learning(tmp)
     spatial_counts, _ = phase_spatial(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        gate_counts, _ = phase_generalization(tmp, card)
     log(f"serving summary (phase 12; {card}): bf16 DefaultPredictor "
         f"requests {[round(x, 2) for x in serving['DefaultPredictor']['request_ms']]}"
         f" ms, predict_batch(8) "
@@ -3753,7 +3988,8 @@ def main(argv) -> int:
             "standard_roi_heads_serving": std_serve_counts[name],
             **{path: c[name] for path, c in multi_counts.items()},
             **{path: c[name] for path, c in learning_counts.items()},
-            "spatial_partition_serving": spatial_counts[name]}
+            "spatial_partition_serving": spatial_counts[name],
+            **{path: c[name] for path, c in gate_counts.items()}}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
         if name != "greedy_nms":  # StandardROIHeads' launch shape

@@ -17,6 +17,12 @@ weights drawn from the seed.
 ``TEST.PCB_ENABLE True`` rescores the detections with PCB
 (``evaluation/pcb.py``).
 
+With ``FSODTF_LAUNCH_COUNTS=FILE`` in the environment, the process appends
+its launches of the hand-written kernels to FILE at exit, as one JSON line
+(``{"argv": [...], "greedy_nms": n, "roi_align_v2_fwd": n,
+"roi_align_v2_bwd": n}``): the counts of a run driven as a subprocess, as
+``chip_smoke.py`` drives the held-out gate.
+
 More than one device, as the reference launches it:
 
     python -m ...cli --num-gpus 8 --config-file ...             # 8 cards
@@ -36,6 +42,8 @@ is a serving option and is refused here, as in the JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
+import json
 import logging
 import os
 import platform
@@ -245,10 +253,28 @@ def do_train(cfg, resume: bool = False):
     return trainer
 
 
+def _append_launch_counts(path, argv):
+    """One JSON line of this process's kernel launches, appended to
+    ``path``."""
+    from .ops import nms_cuda, roi_align_cuda
+
+    with open(path, "a") as f:
+        f.write(json.dumps({
+            "argv": argv,
+            "greedy_nms": nms_cuda.nms_sorted_cuda.launches,
+            "roi_align_v2_fwd": roi_align_cuda.roi_align_cuda.launches,
+            "roi_align_v2_bwd": roi_align_cuda.roi_align_bwd_cuda.launches,
+        }) + "\n")
+
+
 def main(argv=None):
     """The command line. With ``--num-gpus`` or ``--num-machines`` above 1
     it runs on one process a device (``engine/launch.py``) and returns
     local rank 0's results."""
+    if os.environ.get("FSODTF_LAUNCH_COUNTS"):
+        atexit.register(_append_launch_counts,
+                        os.environ["FSODTF_LAUNCH_COUNTS"],
+                        list(sys.argv[1:] if argv is None else argv))
     args = default_argument_parser().parse_args(argv)
     if args.num_gpus * args.num_machines == 1:
         return run(args)

@@ -1,9 +1,9 @@
 """Self-contained yacs-style config system (the PyTorch port's own copy).
 
-A CfgNode with ``_BASE_`` YAML inheritance and a strict, type-checked merge
-(the part of fvcore's CfgNode that loading ``configs/`` needs), without the
-fvcore/yacs dependency. defaults.py holds the complete schema, with the
-JAX package's key names.
+A CfgNode with ``_BASE_`` YAML inheritance, a strict, type-checked merge
+and detectron2's VERSION converter (``compat.py``): the part of fvcore's
+CfgNode that loading configs needs, without the fvcore/yacs dependency.
+defaults.py holds the complete schema, with the JAX package's key names.
 """
 
 from __future__ import annotations
@@ -15,8 +15,15 @@ from typing import Any
 
 import yaml
 
+from .compat import (
+    LATEST_VERSION,
+    downgrade_config,
+    guess_version,
+    prune_removed_keys,
+    upgrade_config,
+)
+
 _BASE_KEY = "_BASE_"
-LATEST_VERSION = 2
 
 
 class CfgNode(dict):
@@ -42,17 +49,26 @@ class CfgNode(dict):
 
     # -- merging ---------------------------------------------------------
     def merge_from_file(self, cfg_filename: str) -> None:
-        """Strict merge of a YAML file and its ``_BASE_`` chain. Only
-        VERSION 2 files (every file in ``configs/``) are read: the
-        detectron2 V1 key renames are not carried in this package."""
-        loaded = _load_yaml_with_base(cfg_filename)
-        version = loaded.get("VERSION", LATEST_VERSION)
-        if version != LATEST_VERSION:
-            raise ValueError(
-                f"{cfg_filename}: config VERSION {version} is not supported "
-                f"(only VERSION {LATEST_VERSION})"
-            )
-        _merge(loaded, self)
+        """Strict merge of a YAML file and its ``_BASE_`` chain, through
+        fvcore's compat flow (``compat.py``): prune the keys this schema
+        removed (any VERSION), guess the VERSION of a file that states
+        none, and for an older version downgrade the full defaults to it,
+        merge the file there (strict in the old key space), then upgrade
+        the merged whole back to the latest. A VERSION above the latest
+        raises ``ValueError``, an unknown key ``KeyError``."""
+        loaded = prune_removed_keys(_load_yaml_with_base(cfg_filename))
+        version = loaded.get("VERSION")
+        if version is None:
+            version = guess_version(loaded, cfg_filename)
+        if version == LATEST_VERSION:
+            _merge(loaded, self)
+            return
+        # a VERSION above the latest raises here
+        old_self = CfgNode(downgrade_config(self.clone(), to_version=version))
+        _merge(loaded, old_self)
+        # upgrade(downgrade(defaults)) == defaults, so every key of the
+        # upgraded whole exists here; merging it back coerces the types
+        _merge(upgrade_config(old_self), self)
 
     def merge_from_list(self, opts: list) -> None:
         """Command-line overrides ``KEY VALUE ...``: each key must exist,

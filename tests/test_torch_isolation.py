@@ -54,7 +54,9 @@ def test_importing_the_cli_tools_and_data_loads_no_jax_and_no_pil():
     so the port imports on a machine without it."""
     tools = sorted(p.stem for p in (ROOT / PORT / "tools").glob("*.py"))
     assert {"make_synthetic_voc", "model_surgery", "serve",
-            "export_serving", "dryrun_multidevice"} <= set(tools)
+            "export_serving", "dryrun_multidevice",
+            "make_generalization_voc", "make_generalization_coco",
+            "train_pcb_extractor"} <= set(tools)
     names = [f"{PORT}.cli", f"{PORT}.dataloader", f"{PORT}.data.native_io",
              f"{PORT}.data.loader", f"{PORT}.evaluation.voc_eval",
              f"{PORT}.utils.events", f"{PORT}.engine.hooks",
@@ -90,6 +92,31 @@ def test_no_file_of_the_port_imports_jax():
     bad = {str(f.relative_to(ROOT)): m for f in files for m in _imports(f)
            if _forbidden(m)}
     assert not bad
+
+
+def test_port_scripts_run_the_port_and_two_root_tools_only():
+    """The port's shell scripts drive ``python -m`` of the port; of the
+    repository's root scripts they call only ``tools/create_config.py`` and
+    ``tools/extract_results.py``, which import neither JAX nor the JAX
+    package. They default to CUDA."""
+    import re
+
+    scripts = sorted((ROOT / PORT / "tools").glob("*.sh"))
+    assert {"smoke_workflow", "check_generalization",
+            "check_generalization_coco",
+            "run_stats_protocol"} <= {p.stem for p in scripts}
+    allowed = {"tools/create_config.py", "tools/extract_results.py"}
+    for path in scripts:
+        text = path.read_text()
+        root_tools = set(re.findall(r"\bpython3? (tools/\S+\.py)", text))
+        assert root_tools <= allowed, (path.name, root_tools - allowed)
+        assert "main.py" not in text, path.name
+        assert not re.search(r"\bpython3? -m (?!\$\{PORT\}\.)", text), \
+            path.name
+        for tool in allowed:
+            assert not [m for m in _imports(ROOT / tool) if _forbidden(m)]
+        if path.stem != "smoke_workflow":  # its DEVICE is an argument
+            assert "DEVICE=${DEVICE:-cuda}" in text, path.name
 
 
 def test_predictor_refuses_to_leave_cuda_quietly():
