@@ -203,13 +203,24 @@ Phases, each of which fails the run on error:
      defaults on the gate's data: final accuracy >= 0.7, then
      ``PrototypicalCalibrationBlock`` loads the ``.pth`` with its 522
      tensors matched.
+ 18. the card against the CPU on phase 17's gate, float32 with TF32 off
+     (``…_torch/tools/card_vs_cpu.py``): (a) step 0 of the clean gfsod
+     fine-tune from its surgered checkpoint, on one decoded batch with the
+     sampling and dropout drawn on the host, on both devices: losses within
+     1e-5 relative, gradients within 1e-4 of their largest value; (b) 20
+     steps in lockstep, each step's losses printed, the largest relative
+     gap within 1e-2, as many anchors and ROIs sampled on both; (c) its
+     fine-tuned checkpoint evaluated on both devices, strict bAP within
+     0.3; (d) the Trainer's float32 steps (``exact_float32``) run twice on
+     the card over the same 20 batches, losses and parameters bitwise
+     equal; launches held to the steps and evaluation batches.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b) and 9-17, by path, PCB's apart, launches per
+main paths of phases 5, 8 (b) and 9-18, by path, PCB's apart, launches per
 train step, and the ROIAlign kernels' numbers at StandardROIHeads'
 bin_stride 1),
 then the card's name and power limit, then as the last line
@@ -3536,17 +3547,6 @@ GATE_BASE_OPTS = ("MODEL.WEIGHTS", "", "SOLVER.MAX_ITER", "1200",
                   "SOLVER.WARMUP_ITERS", "100")
 
 
-def gate_tiny_opts():
-    """The gate script's TINY_OPTS on the card as a KEY VALUE list, read
-    from the script itself (its own default seed)."""
-    import re
-
-    with open(GATE_SCRIPT) as f:
-        text = re.search(r'TINY_OPTS="(.*?)"', f.read(), re.S).group(1)
-    text = text.replace("${DEVICE}", "cuda").replace("${GEN_SEED:-5}", "5")
-    return text.split()
-
-
 def _gate_default(name):
     """A knob's default in the gate script (``NAME=${NAME:-N}``)."""
     import re
@@ -3616,6 +3616,7 @@ def phase_generalization(tmp, card):
         PrototypicalCalibrationBlock,
     )
     from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        card_vs_cpu,
         train_pcb_extractor,
     )
 
@@ -3644,7 +3645,7 @@ def phase_generalization(tmp, card):
     # chunk an evaluation batch of 32
     cfg = get_cfg()
     cfg.merge_from_file(CONFIG)
-    cfg.merge_from_list(gate_tiny_opts())
+    cfg.merge_from_list(card_vs_cpu.gate_tiny_opts("cuda", 5))
     steps = _gate_default("ITERS_BASE") + _gate_default("ITERS_FT")
     evals = sum(open(p).read().count("copypaste: Task: bbox")
                 for p in (base_log, ctrl_log, ft_log))
@@ -3678,7 +3679,7 @@ def phase_generalization(tmp, card):
     datasets = os.path.join(save, "datasets")
     os.environ["FSODTF_DATASETS"] = datasets
     register_all(datasets)
-    tiny = gate_tiny_opts()
+    tiny = card_vs_cpu.gate_tiny_opts("cuda", 5)
     pairs = list(zip(tiny[0::2], tiny[1::2]))
     wide = [x for k, v in pairs if k not in GATE_WIDTH_KEYS for x in (k, v)]
     out["steps"] = {}
@@ -3734,6 +3735,130 @@ def phase_generalization(tmp, card):
         f"{ext['train_s']:.1f} s, PCB built with it in {pcb_s:.1f} s, "
         f"{matched} tensors matched; phase 17 took {out['seconds']:.1f} s")
     return {"generalization_gate": counts}, out
+
+
+# ----------------------------------------------------------------- phase 18
+# the gate's clean fine-tune, card against CPU, float32 with TF32 off: the
+# training step's criteria (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL) at step 0.
+# Later steps agree to ~1e-7 until a near-tie (an NMS score, an IoU at a
+# threshold) falls the other way on one device and one sampled ROI changes:
+# on an H100 that moved a step's loss by 6.7e-4 and the gap stayed near
+# 1e-4 after it; a wrong draw or dropout mask moves the cls loss by
+# percents, so the trajectories must stay within 1e-2 and every step must
+# sample as many ROIs and anchors on both devices. Strict bAP of one
+# checkpoint on both devices within 0.3
+CARD_CPU_STEPS = 20
+CARD_CPU_TRAJ_RTOL = 1e-2
+CARD_CPU_BAP_TOL = 0.3
+CARD_CPU_COUNTS = ("metric/rpn_num_pos_anchors", "metric/rpn_num_neg_anchors",
+                   "metric/roi_num_fg_samples", "metric/roi_num_bg_samples")
+
+
+def phase_card_vs_cpu(tmp, card):
+    """18. The gate's clean fine-tune (phase 17's surgered checkpoint, its
+    data, the ft leg's config) on the card against the CPU, through
+    ``…_torch/tools/card_vs_cpu.py``: (a) step 0 from one checkpoint on one
+    decoded batch with host-drawn sampling and dropout; (b) 20 steps in
+    lockstep, the losses printed, the sample counts equal; (c) phase 17's
+    fine-tuned checkpoint evaluated on both devices; (d) the Trainer's
+    float32 steps twice on the card over the same batches, bitwise equal.
+    Returns ({path: launches}, numbers)."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        card_vs_cpu,
+    )
+
+    t0 = time.perf_counter()
+    save = os.path.join(tmp, "gate")
+    datasets = os.path.join(save, "datasets")
+    base = os.path.join(save, "base1", "model_reset_surgery.pth")
+    ft = os.path.join(save, "10shot_seed0", "model_final.pth")
+    counts = _reset_counts()
+    res = card_vs_cpu.lockstep(base, datasets, CARD_CPU_STEPS,
+                               out_dir=os.path.join(tmp, "card_vs_cpu"))
+    launches = counts()
+    first = res["first_step"]
+    log(f"card vs CPU (a) step 0 of the clean fine-tune: losses within "
+        f"{first['loss_rel']:.3e} relative (limit {TRAIN_LOSS_RTOL}), "
+        f"gradients within {first['grad_err']:.3e} of their largest value "
+        f"{first['grad_max']:.3e} (limit {TRAIN_GRAD_TOL}; worst "
+        f"{first['grad_worst']})")
+    if first["loss_rel"] > TRAIN_LOSS_RTOL or \
+            first["grad_err"] > TRAIN_GRAD_TOL:
+        raise PhaseError(f"card vs CPU: step 0 differs: {first}")
+    for r in res["steps"]:
+        log(f"  step {r['step']}: total loss card "
+            f"{r['card']['total_loss']:.8f} CPU {r['cpu']['total_loss']:.8f}"
+            f" (relative gap {r['total_rel']:.3e})")
+    worst = max(res["steps"], key=lambda r: r["total_rel"])
+    groups = ", ".join(f"{g} {v['gap']:.3e} of {v['moved']:.3e}" for g, v
+                       in res["steps"][-1]["groups"].items())
+    log(f"card vs CPU (b) {CARD_CPU_STEPS} steps: largest relative gap "
+        f"{res['max_total_rel']:.3e} at step {worst['step']} (limit "
+        f"{CARD_CPU_TRAJ_RTOL}); at the last step each group's distance "
+        f"between the devices against its movement: {groups}")
+    if res["max_total_rel"] > CARD_CPU_TRAJ_RTOL:
+        raise PhaseError(f"card vs CPU: the trajectories part at step "
+                         f"{worst['step']}: {worst}")
+    unequal = [r["step"] for r in res["steps"]
+               if any(r["card"][k] != r["cpu"][k] for k in CARD_CPU_COUNTS)]
+    if unequal:
+        raise PhaseError(f"card vs CPU: the sample counts differ at steps "
+                         f"{unequal}")
+    # (d) the Trainer's float32 steps on the card (exact_float32) twice
+    # over the same batches: bitwise equal
+    rep = card_vs_cpu.card_repeat(base, datasets, CARD_CPU_STEPS,
+                                  out_dir=os.path.join(tmp, "card_repeat"))
+    launches = counts()
+    log(f"card vs CPU (d) two card runs of {CARD_CPU_STEPS} float32 steps "
+        f"from one checkpoint: losses bitwise equal {rep['losses_equal']}, "
+        f"parameters bitwise equal {rep['params_equal']}")
+    if not (rep["losses_equal"] and rep["params_equal"]):
+        raise PhaseError(f"card vs CPU: the card's float32 steps are not "
+                         f"reproducible: {rep}")
+    # a step: one NMS, one forward and backward per ROI chunk (8 x 32 ROIs)
+    cfg = card_vs_cpu.gate_cfg(base)
+    step_chunks = -(-cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+                    // cfg.TPU.ROI_CHUNK)
+    steps = 3 * CARD_CPU_STEPS
+    want = {"greedy_nms": steps, "roi_align_v2_fwd": step_chunks * steps,
+            "roi_align_v2_bwd": step_chunks * steps}
+    if launches != want:
+        raise PhaseError(f"card vs CPU: launches {launches}, expected "
+                         f"{want} ({steps} steps)")
+    counts = _reset_counts()
+    ev = {dev: card_vs_cpu.evaluate(ft, datasets, dev,
+                                    os.path.join(tmp, f"card_vs_cpu_{dev}"))
+          for dev in ("cuda", "cpu")}
+    eval_launches = counts()
+    with open(os.path.join(datasets, "VOC2007", "ImageSets", "Main",
+                           "test.txt")) as f:
+        test_images = len([ln for ln in f if ln.strip()])
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+
+    batches = -(-test_images // cli.EVAL_BATCH_SIZE)
+    eval_chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // cfg.TPU.ROI_CHUNK)
+    want = {"greedy_nms": 2 * batches,
+            "roi_align_v2_fwd": eval_chunks * batches, "roi_align_v2_bwd": 0}
+    if eval_launches != want:
+        raise PhaseError(f"card vs CPU: evaluation launches {eval_launches},"
+                         f" expected {want} ({batches} batches)")
+    launches = {k: launches[k] + eval_launches[k] for k in KERNEL_NAMES}
+    gap = abs(ev["cuda"]["bAP"] - ev["cpu"]["bAP"])
+    log(f"card vs CPU (c) phase 17's fine-tuned checkpoint: strict bAP "
+        f"{ev['cuda']['bAP']:.4f} on the card, {ev['cpu']['bAP']:.4f} on "
+        f"the CPU (gap {gap:.4f}, limit {CARD_CPU_BAP_TOL}); bAP50 "
+        f"{ev['cuda']['bAP50']:.4f} / {ev['cpu']['bAP50']:.4f}")
+    if not gap <= CARD_CPU_BAP_TOL:
+        raise PhaseError(f"card vs CPU: evaluation differs: {ev}")
+    secs = time.perf_counter() - t0
+    log(f"card vs CPU summary (phase 18; {card}): step 0 losses "
+        f"{first['loss_rel']:.3e}, gradients {first['grad_err']:.3e}; "
+        f"{CARD_CPU_STEPS} steps' largest gap {res['max_total_rel']:.3e}; "
+        f"strict bAP gap {gap:.4f}; two card runs bitwise equal; "
+        f"launches {launches}; {secs:.1f} s")
+    return {"card_vs_cpu_finetune": launches}, dict(
+        first=first, max_total_rel=res["max_total_rel"], bap=ev,
+        seconds=secs)
 
 
 # ------------------------------------------------- optional: --profile
@@ -3917,6 +4042,7 @@ def main(argv) -> int:
     spatial_counts, _ = phase_spatial(card)
     with tempfile.TemporaryDirectory() as tmp:
         gate_counts, _ = phase_generalization(tmp, card)
+        card_cpu_counts, _ = phase_card_vs_cpu(tmp, card)
     log(f"serving summary (phase 12; {card}): bf16 DefaultPredictor "
         f"requests {[round(x, 2) for x in serving['DefaultPredictor']['request_ms']]}"
         f" ms, predict_batch(8) "
@@ -3989,7 +4115,8 @@ def main(argv) -> int:
             **{path: c[name] for path, c in multi_counts.items()},
             **{path: c[name] for path, c in learning_counts.items()},
             "spatial_partition_serving": spatial_counts[name],
-            **{path: c[name] for path, c in gate_counts.items()}}
+            **{path: c[name] for path, c in gate_counts.items()},
+            **{path: c[name] for path, c in card_cpu_counts.items()}}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
         if name != "greedy_nms":  # StandardROIHeads' launch shape

@@ -6,7 +6,9 @@ non-``metric/`` losses, backward, gradient clipping, SGD and the LR
 schedule. ``COMPUTE_DTYPE`` bfloat16 runs through the modules' own casts
 over float32 master weights, as the serving path does; there is no
 autocast. Each step's anchor/ROI sampling and cls dropout draw from two
-generators seeded from the run's seed and the iteration.
+generators seeded from the run's seed and the iteration. float32 training
+on CUDA runs each step under ``exact_float32()`` (TF32 off, deterministic
+algorithms), so a seed gives one result on the card.
 
 ``Trainer`` runs the loop on ``cfg.MODEL.DEVICE`` ("cuda" by default, and
 it raises when CUDA is absent). Its batches come from
@@ -37,6 +39,7 @@ step, with one checkpoint.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import time
@@ -150,8 +153,34 @@ def check_finite(step: int, losses, named_params) -> None:
         + (f" and {len(bad) - 8} more" if len(bad) > 8 else ""))
 
 
+@contextlib.contextmanager
+def exact_float32():
+    """float32 on CUDA as on the CPU: TF32 off in cuBLAS and cuDNN, cuDNN's
+    deterministic algorithms and PyTorch's deterministic mode (a warning,
+    not an error, for an op with no deterministic version), each restored
+    on exit. Under it a step gives the same result every time on one
+    card. cuBLAS keeps its workspace: on the step's one stream its GEMMs
+    repeat, and a workspace set for some processes only (spawned ranks
+    inherit the environment) would change their rounding against the
+    others'."""
+    cuda, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (cuda.allow_tf32, cudnn.allow_tf32, cudnn.deterministic,
+             cudnn.benchmark, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    cuda.allow_tf32 = cudnn.allow_tf32 = False
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        (cuda.allow_tf32, cudnn.allow_tf32, cudnn.deterministic,
+         cudnn.benchmark) = saved[:4]
+        torch.use_deterministic_algorithms(saved[4], warn_only=saved[5])
+
+
 def make_train_step(model, optimizer, scheduler=None, clip=None,
-                    seed: int = 0, debug_nans: bool = False, forward=None):
+                    seed: int = 0, debug_nans: bool = False, forward=None,
+                    draw_device=None):
     """Returns ``train_step(images, gt, step, meta=None) -> losses``: one
     SGD step of ``model`` on a batch already on the model's device; the
     losses come back detached, with ``total_loss``, averaged over the
@@ -159,16 +188,31 @@ def make_train_step(model, optimizer, scheduler=None, clip=None,
     (``parallel.wrap_model``'s), ``model.forward_train`` by default. A raw
     batch of the device-preprocessing loader (``meta`` with its
     ``target_hw``) is resized on the device first. ``debug_nans`` checks
-    the losses and gradients before the update (``check_finite``)."""
+    the losses and gradients before the update (``check_finite``).
+    A float32 model (its compute dtype) steps a CUDA batch under
+    ``exact_float32()``, so that a card step is reproducible (with TF32
+    convolutions and cuDNN's nondeterministic algorithms two card runs of
+    the held-out gate at one seed differed by 9.5 strict bAP); bfloat16
+    steps and CPU steps run as they are. ``draw_device``: where the step's
+    generators draw (the batch's device by default); "cpu" draws on the
+    host and copies each draw to the batch's device, so a card step
+    samples what a CPU step samples."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     named = list(model.named_parameters())
     forward = forward or model.forward_train
+    float32 = getattr(model, "dtype", params[0].dtype) == torch.float32
 
     def train_step(images, gt, step: int, meta=None):
+        exact = float32 and images.image.device.type == "cuda"
+        with exact_float32() if exact else contextlib.nullcontext():
+            return run(images, gt, step, meta)
+
+    def run(images, gt, step, meta):
         if meta is not None and "target_hw" in meta:
             images = preprocess_batch(images, meta)
         device = images.image.device
-        sampling, dropout = step_generators(seed, step, device)
+        sampling, dropout = step_generators(seed, step,
+                                            draw_device or device)
         losses = forward(images, gt, sampling, dropout)
         total = sum(v for k, v in losses.items()
                     if not k.startswith("metric/"))

@@ -99,15 +99,18 @@ def local_rand(shape, generator=None, device=None) -> torch.Tensor:
     """Uniform [0, 1) of ``shape`` whose leading axis is this rank's rows of
     the global batch: drawn at (world * shape[0], ...) from ``generator``
     and sliced, so N ranks draw what one process draws for the whole
-    batch, and the generator advances alike on every rank."""
+    batch, and the generator advances alike on every rank. A generator on
+    another device than ``device`` (a host generator for a CUDA draw) draws
+    on its own device and the draw is copied to ``device``."""
     world = get_world_size()
+    at = device if generator is None else generator.device
     if world == 1:
-        return torch.rand(shape, generator=generator, device=device)
+        return torch.rand(shape, generator=generator, device=at).to(device)
     n = shape[0]
     full = torch.rand((world * n, *shape[1:]), generator=generator,
-                      device=device)
+                      device=at)
     r = get_rank()
-    return full[r * n:(r + 1) * n]
+    return full[r * n:(r + 1) * n].to(device)
 
 
 def local_rows(batch):

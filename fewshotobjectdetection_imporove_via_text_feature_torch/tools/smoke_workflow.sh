@@ -8,13 +8,16 @@
 #
 #   bash fewshotobjectdetection_imporove_via_text_feature_torch/tools/smoke_workflow.sh [SAVE_DIR] [DEVICE]
 #
-# DEVICE is cpu (the default) or cuda. The per-seed config is written into a
-# copy of configs/ under SAVE_DIR; nothing is written under configs/.
+# It runs on the card (MODEL.DEVICE cuda) unless asked for the CPU: DEVICE
+# is the second argument, else $DEVICE, else cuda; pass cpu for the CPU.
+# The per-seed config is written into a copy of configs/ under SAVE_DIR;
+# nothing is written under configs/.
 set -e -o pipefail
 cd "$(dirname "$0")/../.."
 
 SAVE_DIR=${1:-${TMPDIR:-/tmp}/smoke_workflow_torch}
-DEVICE=${2:-cpu}
+DEVICE=${DEVICE:-cuda}
+DEVICE=${2:-${DEVICE}}
 PORT=fewshotobjectdetection_imporove_via_text_feature_torch
 rm -rf "${SAVE_DIR}"
 mkdir -p "${SAVE_DIR}"

@@ -115,8 +115,7 @@ def test_port_scripts_run_the_port_and_two_root_tools_only():
             path.name
         for tool in allowed:
             assert not [m for m in _imports(ROOT / tool) if _forbidden(m)]
-        if path.stem != "smoke_workflow":  # its DEVICE is an argument
-            assert "DEVICE=${DEVICE:-cuda}" in text, path.name
+        assert "DEVICE=${DEVICE:-cuda}" in text, path.name
 
 
 def test_predictor_refuses_to_leave_cuda_quietly():

@@ -189,20 +189,44 @@ def test_gradient_clipping_matches_jax(clip_type, norm_type):
 
 
 # ------------------------------------------------------- 3 SGD steps
-def _step_cfg():
-    cfg = _cfg(BASE, BASE_LR=0.02, MOMENTUM=0.9, WEIGHT_DECAY=1e-3,
-               WEIGHT_DECAY_BIAS=5e-4, BIAS_LR_FACTOR=2.0, WARMUP_ITERS=2,
-               WARMUP_FACTOR=0.1, STEPS=(2,), GAMMA=0.5)
-    cfg.MODEL.BACKBONE.FREEZE_AT = 2
+# the gradient contracts: (FREEZE_AT, ROI_HEADS.FREEZE_FEAT, GDL lambda_rpn,
+# lambda_rcnn, the parameters the optimizer never moves, WEIGHT_DECAY).
+# "base": the base config's scales at FREEZE_AT 2; "gfsod": the gfsod
+# config's contract at the held-out gate's profile (FREEZE_AT 0);
+# "sabotaged": the gate's sabotaged arm (full backward, res5 trained). The
+# gfsod case runs without weight decay: its backbone's updates are
+# lambda_rcnn 0.001 of a gradient, as small as a decay of 1e-3, and the two
+# would partly cancel, so the net update would show the gradient's float32
+# reassociation noise magnified; without decay the update is the gradient
+# contract's own
+STEP_CONTRACTS = {
+    "base": (2, False, 0.0, 0.75, ("backbone.stem.", "backbone.res2."),
+             1e-3),
+    "gfsod": (0, True, 0.0, 0.001, ("roi_heads.res5.",), 0.0),
+    "sabotaged": (0, False, 1.0, 1.0, (), 1e-3),
+}
+
+
+def _step_cfg(freeze_at=2, freeze_feat=False, weight_decay=1e-3):
+    cfg = _cfg(BASE, BASE_LR=0.02, MOMENTUM=0.9, WEIGHT_DECAY=weight_decay,
+               WEIGHT_DECAY_BIAS=weight_decay / 2, BIAS_LR_FACTOR=2.0,
+               WARMUP_ITERS=2, WARMUP_FACTOR=0.1, STEPS=(2,), GAMMA=0.5)
+    cfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
+    cfg.MODEL.ROI_HEADS.FREEZE_FEAT = freeze_feat
     cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
     cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
     cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 0.05
     return cfg
 
 
-def test_three_sgd_steps_match_jax_make_train_step():
-    cfg = _step_cfg()
+@pytest.mark.parametrize("contract", list(STEP_CONTRACTS))
+def test_three_sgd_steps_match_jax_make_train_step(contract):
+    freeze_at, freeze_feat, rpn_scale, roi_scale, frozen, decay = \
+        STEP_CONTRACTS[contract]
+    cfg = _step_cfg(freeze_at, freeze_feat, decay)
     jmodel, params = jax_params()
+    jmodel = jmodel.clone(rpn_backward_scale=rpn_scale,
+                          roi_backward_scale=roi_scale)
     canvas, hw, orig = inputs(True)
     gb, gc, gv = gt_arrays(hw)
 
@@ -215,7 +239,8 @@ def test_three_sgd_steps_match_jax_make_train_step():
                                    jax_images(canvas, hw, orig), jgt,
                                    jax.random.PRNGKey(0), it)
 
-    model = port_model(params)
+    model = port_model(params, rpn_backward_scale=rpn_scale,
+                       roi_backward_scale=roi_scale)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     opt = build_optimizer(cfg, model)
     step = make_train_step(model, opt, build_scheduler(cfg, opt),
@@ -244,7 +269,7 @@ def test_three_sgd_steps_match_jax_make_train_step():
         want = _to_torch_layout(np.asarray(value), kind).astype(np.float64) \
             - _to_torch_layout(np.asarray(initial[path]), kind)
         got = param.detach().double().numpy() - before[name].double().numpy()
-        if name.startswith(("backbone.stem.", "backbone.res2.")):
+        if frozen and name.startswith(frozen):
             assert not got.any() and not want.any(), name  # frozen
             continue
         scale = float(np.abs(want).max())
