@@ -206,7 +206,8 @@ def test_check_generalization_plumbing_on_the_cpu(tmp_path):
     (BASE_AP50_FLOOR 0, NOVEL_AP50_FLOOR 0, BASE_AFTER_FT_FLOOR 0,
     DROP_MARGIN 100, NOVEL_GAIN_MARGIN -100), because 4 iterations learn
     nothing. ``test_torch_generalization_gate.py`` runs the gate with the
-    JAX package's floors. Each CLI process appends its kernel launches to
+    JAX package's floors. The script's CLI processes run with one intra-op
+    thread each, as ``test_torch_multiprocess_cli``'s ranks do. Each CLI process appends its kernel launches to
     FSODTF_LAUNCH_COUNTS at exit: none on the CPU, which runs the plain
     versions."""
     env = dict(os.environ, DEVICE="cpu", GEN_LEGS="base,control,ft,stats",
@@ -214,7 +215,8 @@ def test_check_generalization_plumbing_on_the_cpu(tmp_path):
                BASE_AP50_FLOOR="0",
                NOVEL_AP50_FLOOR="0", BASE_AFTER_FT_FLOOR="0",
                DROP_MARGIN="100", NOVEL_GAIN_MARGIN="-100",
-               PYTHONPATH=str(ROOT),
+               PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1",
                FSODTF_LAUNCH_COUNTS=str(tmp_path / "launches.jsonl"))
     save = tmp_path / "gen"
     r = subprocess.run(

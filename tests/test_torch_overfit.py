@@ -1,8 +1,8 @@
 """The port's learning checks against the JAX package's tools, on the CPU:
 the overfit set's maker and recall, the generalization VOC maker, the
 checks' configs key by key, PCB's window rule, and plumbing runs of
-``overfit_map_check``, ``overfit_distill_check`` and ``soak_test --tiny``
-at a handful of iterations.
+``overfit_map_check`` and ``overfit_distill_check`` at a handful of
+iterations (``soak_test --tiny``'s is in ``test_torch_overfit_soak.py``).
 
 The full tiny checks (500 and 600 + 700 iterations) take minutes on the
 CPU: they are `gate` tests, left out of Tier-1's ``-m 'not slow'``.
@@ -22,7 +22,6 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
     make_generalization_voc as port_gen_voc,
     overfit_distill_check as port_distill,
     overfit_map_check as port_map,
-    soak_test as port_soak,
 )
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -275,17 +274,6 @@ def test_overfit_distill_check_reloads_and_resets_the_student(capsys):
     out = _json_line(capsys.readouterr().out)
     assert out["reset_tensors"] >= 6
     assert np.isfinite(out["loss_kl"] + out["loss_student_feat"]).all()
-
-
-def test_soak_test_tiny_preempts_and_resumes(tmp_path):
-    """Plumbing on the CPU: SIGTERM after iteration 20 of 80, resumed to
-    the end through the CLI, every assert of the soak."""
-    res = port_soak.main(["--tiny", "--device", "cpu", "--iters", "80",
-                          "--preempt-at", "20", "--ckpt-period", "10",
-                          "--save-dir", str(tmp_path / "soak")])
-    assert 20 <= res["sigterm_at"] <= res["leg1_last_iter"] < 79
-    assert res["leg1_checkpoints"]
-    assert res["loss_last_decile"] < res["loss_first_decile"]
 
 
 @pytest.mark.gate
