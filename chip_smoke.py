@@ -214,13 +214,34 @@ Phases, each of which fails the run on error:
      0.3; (d) the Trainer's float32 steps (``exact_float32``) run twice on
      the card over the same 20 batches, losses and parameters bitwise
      equal; launches held to the steps and evaluation batches.
+ 19. the default compute dtype, bfloat16, on the card against the CPU, the
+     port alone (C the card's bf16, T' the CPU's bf16, R' the CPU's
+     float32; rule 1 per tensor e(C) <= 2 e(T') + u with e(X) =
+     max|X - R'| / max|R'| and u = 2**-8, rule 2 the same sets on both
+     devices from the same bf16-rounded head outputs, rule 3 C matching
+     at least as many valid detections in T' (IoU > 0.9, same class) as T'
+     matches in R'): (a) every case of tests/test_torch_bf16_*.py at their
+     tiny size on seeded, perturbed weights: res4 and pooled features with
+     stride_in_1x1 both ways, the RPN head, forward_inference padded and
+     unpadded (StandardROIHeads too), predict_batch, a device-preprocessed
+     batch, an exported bf16 program served on the card, every loss and
+     gradient of the flagship and of the Text, TextAtt, Semantic and
+     Distillated meta-archs and their inference, each parameter's update
+     after 3 SGD steps, proposal selection and final detections from the
+     same bf16 head outputs; then (a) again with every NMS and ROIAlign
+     forward and backward call captured and held to its plain version;
+     (b) full R-101 width at the 512x864 bucket, seeded weights with the
+     conv3s drawn: one image through DefaultPredictor (res4, pooled
+     features, detections) and one training step at batch 2 with host
+     draws (every loss, nine gradients); each comparison's two sides
+     printed, a failure of any fails the run.
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b) and 9-18, by path, PCB's apart, launches per
+main paths of phases 5, 8 (b) and 9-19, by path, PCB's apart, launches per
 train step, and the ROIAlign kernels' numbers at StandardROIHeads'
 bin_stride 1),
 then the card's name and power limit, then as the last line
@@ -3861,6 +3882,706 @@ def phase_card_vs_cpu(tmp, card):
         seconds=secs)
 
 
+# ----------------------------------------------------------------- phase 19
+# the default compute dtype on the card against the CPU, by the rule and on
+# the cases of tools/bf16_parity.py (the tests/test_torch_bf16_*.py cases,
+# there against the JAX package), the card in the place of X: C is the
+# port in bfloat16 on the card, T' the port in bfloat16 on the CPU and R'
+# the port in float32 on the CPU, on the same inputs and weights:
+#   rule 1, per tensor: e(C) <= 2 e(T') + u;
+#   rule 2, proposals and detections from the same bf16-rounded head
+#     outputs: the same sets on the card as on the CPU;
+#   rule 3, of the valid detections: C matches (IoU > 0.9, same class) at
+#     least as many in T' as T' matches in R'
+# (b): one image and one training step at the 512x864 bucket, full R-101
+# width, on a batch of BF16_FULL_BATCH; the nine gradients of
+# tests/test_torch_train_model.py
+BF16_FULL_BATCH = 1
+BF16_FULL_HW = (512, 864)
+BF16_GRADS = ("affine_rpn.weight", "affine_rcnn.weight",
+              "proposal_generator.rpn_head.conv.weight",
+              "backbone.stem.conv1.weight", "backbone.res3.0.conv1.weight",
+              "backbone.res4.0.conv2.weight", "roi_heads.res5.0.conv3.weight",
+              "roi_heads.box_predictor.cls_score.weight",
+              "roi_heads.box_predictor.bbox_pred.weight")
+# (b)'s output layers are drawn around the image's own features
+# (_bf16_full_state): the RPN's objectness and deltas and the box deltas
+# spread by BF16_HEAD_STD, the classifier so that BF16_CONFIDENT_SHARE of
+# the proposals score above BF16_CONFIDENT, which makes its confident
+# detections the valid ones (SCORE_THRESH_TEST)
+BF16_HEAD_STD = 0.5
+BF16_CONFIDENT = 0.5
+BF16_CONFIDENT_SHARE = 0.1
+
+
+class _Rule4:
+    """Rule 4's comparisons, each with its two sides; every failure is
+    kept, and the phase fails after all were made and printed."""
+
+    def __init__(self):
+        self.rows, self.failed = [], []
+
+    def tensors(self, case, name, c, t, r):
+        """Rule 1 on one tensor of each arm."""
+        import numpy as np
+        from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+            bf16_parity,
+        )
+
+        if not np.abs(r).max() > 0:
+            self.failed.append(f"{case} {name}: R' is zero (no teeth)")
+            return
+        ec, et, limit = bf16_parity.rule1(c, t, r)
+        self.rows.append(dict(case=case, name=name, rule=1, e_card=ec,
+                              e_cpu_bf16=et, limit=limit))
+        if not ec <= limit:
+            self.failed.append(f"{case} {name}: e(C) {ec:.4e} > 2 e(T') + u"
+                               f" = {limit:.4e}")
+
+    def detections(self, case, c, t, r, held=True):
+        """Rule 3 on [(boxes, classes)] per image of each arm; a comparison
+        not ``held`` is recorded and fails nothing."""
+        from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+            bf16_parity,
+        )
+
+        ct, tr, n = bf16_parity.rule3(c, t, r)
+        n = dict(zip(("C", "T'", "R'"), n.values()))
+        self.rows.append(dict(case=case, name="detections", rule=3,
+                              card_in_cpu_bf16=ct, cpu_bf16_in_f32=tr,
+                              valid=n, held=held))
+        if not held:
+            return
+        if min(n.values()) <= 10:
+            self.failed.append(f"{case}: valid detections {n} (no teeth)")
+        elif ct < tr:
+            self.failed.append(f"{case}: C matches {ct} in T', T' matches "
+                               f"{tr} in R'")
+
+    def same(self, case, ok, detail):
+        """Rule 2: a set computed on both devices from the same inputs."""
+        self.rows.append(dict(case=case, name=detail, rule=2, equal=ok))
+        if not ok:
+            self.failed.append(f"{case}: {detail} differ")
+
+    def summary(self, rows=None):
+        """One line over ``rows`` (every comparison made so far)."""
+        rows = self.rows if rows is None else rows
+        ones = [r for r in rows if r["rule"] == 1]
+        worst = max(ones, key=lambda r: r["e_card"] / r["limit"],
+                    default=None)
+        threes = [r for r in rows if r["rule"] == 3]
+        twos = [r for r in rows if r["rule"] == 2]
+        out = f"{len(ones)} tensors"
+        if worst:
+            out += (f" (worst e(C)/limit {worst['e_card'] / worst['limit']:.3f}"
+                    f": {worst['case']} {worst['name']}, e(C) "
+                    f"{worst['e_card']:.4e}, e(T') {worst['e_cpu_bf16']:.4e})")
+        out += f"; {len(twos)} same-input sets, equal " \
+               f"{sum(r['equal'] for r in twos)}"
+        out += "; detections (C in T' / T' in R' of valid): " + ", ".join(
+            f"{r['case']} {r['card_in_cpu_bf16']}/{r['cpu_bf16_in_f32']} of "
+            f"{r['valid']}" + ("" if r["held"] else " (reported)")
+            for r in threes)
+        return out
+
+
+def _bf16_dets(det):
+    """Detections -> [(boxes, classes)] of each image's valid rows."""
+    out = []
+    for i in range(det.valid.shape[0]):
+        v = det.valid[i].cpu().numpy()
+        out.append((det.boxes[i].float().cpu().numpy()[v],
+                    det.classes[i].cpu().numpy()[v]))
+    return out
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _bf16_tiny_states():
+    """Every (a) model's float32 state, seeded and perturbed, made once."""
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        GeneralizedRCNN,
+        build_model,
+        text_heads,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        bf16_parity as cases,
+    )
+
+    seed = cases.seed_weights
+    states = {
+        "flagship": seed(GeneralizedRCNN(**cases.tiny_kwargs())),
+        "standard": seed(GeneralizedRCNN(**cases.tiny_kwargs(
+            roi_heads_name="StandardROIHeads", box_convfc=(1, 32, 2, 64)))),
+        "predictor": seed(build_model(cases.predictor_cfg("float32"))),
+        "export": seed(build_model(cases.export_cfg("float32"))),
+    }
+    for meta in cases.TEXT_ARCHS:
+        cls, extra = text_heads.META_ARCHS[meta]
+        states[meta] = seed(cls(**extra, **cases.text_kwargs(meta)))
+    return states
+
+
+def _bf16_tiny_arm(device, dtype, states, shared, tmp):
+    """(a) on one arm: every case of the CPU tests, the port alone on
+    ``device`` in ``dtype``. ``shared`` carries T''s bf16 res4 and RPN head
+    outputs (the inputs the later arms are fed), filled by the first arm.
+    Returns {(kind, case, name): value}: kind "t" a tensor (numpy), "d"
+    detections."""
+    import numpy as np
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data.device_preprocess import (
+        preprocess_batch,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+        make_train_step,
+        step_generators,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine.export import (
+        ServingPredictor,
+        export_inference,
+        save_serving_artifact,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        GeneralizedRCNN,
+        text_heads,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.solver import (
+        build_gradient_clipper,
+        build_optimizer,
+        build_scheduler,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        bf16_parity as cases,
+    )
+
+    dev = torch.device(device)
+    out = {}
+
+    def model(state, cls=GeneralizedRCNN, **kw):
+        m = cls(**kw, dtype=dtype)
+        m.load_state_dict(states[state])
+        return m.to(dev)
+
+    canvas, hw, orig = cases.tiny_inputs(True)
+    images = cases.image_batch(canvas, hw, orig)
+    gt = cases.gt_instances(*cases.tiny_gt(hw))
+    flat = cases.image_batch(*cases.tiny_inputs(False))
+    boxes = torch.from_numpy(cases.pooled_boxes())
+    with torch.no_grad():
+        for stride in (True, False):
+            m = model("flagship", **cases.tiny_kwargs(stride)).eval()
+            res4, _ = m.compute_features(images.to(dev))
+            shared.setdefault(("res4", stride), res4.cpu())
+            out[("t", f"features s1x1={stride}", "res4")] = _np(res4)
+            # pooled features, every arm fed T''s bf16 res4
+            x = shared[("res4", stride)].to(dev, dtype)
+            out[("t", f"features s1x1={stride}", "pooled")] = _np(
+                m.roi_heads.pooled_features(x, boxes.to(dev)))
+            for padded in ((False, True) if stride else (True,)):
+                batch = images if padded else flat
+                out[("d", f"infer s1x1={stride} padded={padded}", "")] = \
+                    _bf16_dets(m.forward_inference(batch.to(dev)))
+            if stride:
+                head = m.proposal_generator.rpn_head(
+                    m.branch_features(res4)[0])
+                shared.setdefault("rpn_head", tuple(t.cpu() for t in head))
+                for name, t in zip(("logits", "deltas"), head):
+                    out[("t", "rpn head", name)] = _np(t)
+                # TPU.DEVICE_PREPROCESS: the raw batch resized on the device
+                raw, rhw, rorig, short, flip = cases.raw_batch()
+                pre = preprocess_batch(
+                    cases.image_batch(raw, rhw, rorig).to(dev),
+                    {"short": short, "flip": flip,
+                     "target_hw": (cases.H, cases.W), "max_size": cases.W})
+                out[("t", "device preprocess", "resized")] = _np(pre.image)
+                out[("d", "device preprocess", "")] = _bf16_dets(
+                    m.forward_inference(pre))
+        m = model("standard", **cases.tiny_kwargs(
+            roi_heads_name="StandardROIHeads", box_convfc=(1, 32, 2, 64)))
+        out[("d", "infer StandardROIHeads", "")] = _bf16_dets(
+            m.eval().forward_inference(images.to(dev)))
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    pred = DefaultPredictor(cases.predictor_cfg(name), device=dev,
+                            state_dict=states["predictor"])
+    out[("d", "predict_batch", "")] = [
+        (o["boxes"], o["classes"])
+        for o in pred.predict_batch(cases.predictor_images())]
+    cfg = cases.export_cfg(name)
+    if dev.type == "cuda" and dtype == torch.bfloat16:
+        # the card serves an exported bf16 program; the CPU arms eager
+        meta, programs = export_inference(cfg, states["export"], batch=1,
+                                          device="cuda")
+        path = os.path.join(tmp, "bf16_vs_cpu.fsodtf-torch")
+        save_serving_artifact(path, meta, programs, states["export"])
+        serve = ServingPredictor(path, device="cuda")
+    else:
+        serve = DefaultPredictor(cfg, device=dev,
+                                 state_dict=states["export"])
+    out[("d", "export", "")] = [(o["boxes"], o["classes"]) for o in
+                                map(serve, cases.export_images())]
+
+    # training: losses and every gradient, draws on the host
+    def train(m, case):
+        m.train()
+        losses = m.forward_train(images.to(dev), gt.to(dev),
+                                 *step_generators(0, 0, "cpu"))
+        sum(v for k, v in losses.items()
+            if not k.startswith("metric/")).backward()
+        for k, v in losses.items():
+            if not k.startswith("metric/"):
+                out[("t", case, k)] = _np(v)
+        for n, p in m.named_parameters():
+            out[("t", case, n)] = (np.zeros(p.shape, np.float32)
+                                   if p.grad is None else _np(p.grad))
+        return m
+
+    train_kw = dict(cases.tiny_kwargs(), **cases.train_kwargs())
+    train(model("flagship", **train_kw), "train")
+    for meta_arch in cases.TEXT_ARCHS:
+        cls, extra = text_heads.META_ARCHS[meta_arch]
+        m = train(model(meta_arch, cls, **extra,
+                        **cases.text_kwargs(meta_arch)), meta_arch)
+        with torch.no_grad():
+            out[("d", f"infer {meta_arch}", "")] = _bf16_dets(
+                m.eval().forward_inference(images.to(dev), gt.to(dev)))
+    # three SGD steps of make_train_step: each parameter's update
+    cfg = cases.step_cfg(CONFIG)
+    m = model("flagship", **train_kw).train()
+    before = {n: p.detach().clone() for n, p in m.named_parameters()}
+    opt = build_optimizer(cfg, m)
+    step = make_train_step(m, opt, build_scheduler(cfg, opt),
+                           build_gradient_clipper(cfg), seed=0,
+                           draw_device="cpu")
+    for it in range(3):
+        step(images.to(dev), gt.to(dev), it)
+    for n, p in m.named_parameters():
+        out[("t", "3 SGD steps", n)] = (p.detach().double()
+                                        - before[n].double()).cpu().numpy()
+    return out
+
+
+def _bf16_same_inputs(rule, rpn_head):
+    """Rule 2 on the card: proposals from T''s bf16 RPN head outputs and
+    final detections from bf16-rounded box-head outputs, on the card and
+    on the CPU."""
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        cell_anchors,
+        fast_rcnn_inference,
+        select_top_proposals,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
+        bf16_parity as cases,
+    )
+
+    devs = (torch.device("cuda"), torch.device("cpu"))
+    logits, deltas = rpn_head
+    hw = torch.from_numpy(cases.tiny_inputs(True)[1])
+    for pre, post in ((1200, 300), (600, 1000)):
+        a, b = (select_top_proposals(logits.to(d), deltas.to(d),
+                                     cell_anchors(),
+                                     (cases.H // 16, cases.W // 16), 16,
+                                     hw.to(d), pre, post)
+                for d in devs)
+        ok = (torch.equal(a.valid.cpu(), b.valid)
+              and torch.equal(a.objectness.cpu(), b.objectness)
+              and float((a.boxes.cpu() - b.boxes).abs().max()) <= 1e-4)
+        rule.same(f"proposals top-k {pre}/{post}", ok,
+                  "valid, objectness, boxes (1e-4)")
+    args, kw = cases.head_outputs()
+    a, b = (fast_rcnn_inference(*(torch.from_numpy(x).to(d) for x in args),
+                                **kw)
+            for d in devs)
+    ok = (torch.equal(a[3].cpu(), b[3]) and torch.equal(a[2].cpu(), b[2])
+          and bool(b[3].sum() > 10)
+          and torch.allclose(a[1].cpu(), b[1], rtol=1e-6, atol=1e-7)
+          and torch.allclose(a[0].cpu(), b[0], rtol=1e-6, atol=1e-4))
+    rule.same("final detections", ok,
+              "valid, classes, scores (1e-6), boxes (1e-4)")
+
+
+def _bf16_compare(rule, arms):
+    """Rules 1 and 3 over the arms' outputs, key by key."""
+    c, t, r = arms["C"], arms["T'"], arms["R'"]
+    for key in r:
+        kind, case, name = key
+        if kind == "t":
+            if not (abs(r[key]).max() > 0):
+                # a parameter a loss never reaches: zero on every arm
+                if abs(c[key]).max() > 0 or abs(t[key]).max() > 0:
+                    rule.failed.append(f"{case} {name}: nonzero where R' "
+                                       "is zero")
+                continue
+            rule.tensors(case, name, c[key], t[key], r[key])
+        else:
+            rule.detections(case, c[key], t[key], r[key], held=kind == "d")
+
+
+def _bf16_full_opts():
+    """(b)'s options: the image stays at 512x853 in the 512x864 bucket; the
+    confident detections are the valid ones; the stem trains, so that all
+    nine gradients exist."""
+    return ["INPUT.MIN_SIZE_TEST", str(BF16_FULL_HW[0]),
+            "INPUT.MAX_SIZE_TEST", "864",
+            "MODEL.ROI_HEADS.SCORE_THRESH_TEST", str(BF16_CONFIDENT),
+            "MODEL.BACKBONE.FREEZE_AT", "0"]
+
+
+def _bf16_spread(f, shape, gen, std):
+    """A weight of ``shape`` (K outputs) and a (K,) bias drawn around the
+    features ``f`` (N, C), float64: each output a random mix of the K
+    leading principal directions of ``f`` (where the features differ most
+    from one row to the next, so that a device's roundings move the
+    outputs least), the bias centring it on ``f``'s mean, both scaled by
+    ``std`` (a number, or a function of the unit-spread outputs that
+    returns the scale) so that the outputs over ``f`` spread by it."""
+    import torch
+
+    k = shape[0]
+    mu = f.mean(0)
+    v = torch.linalg.svd(f - mu, full_matrices=False)[2][:k]
+    w = torch.randn(k, k, generator=gen, dtype=torch.float64) @ v
+    z = (f - mu) @ w.T
+    z = z / z.std()
+    g = std(z) if callable(std) else std
+    w = w * (g / float(((f - mu) @ w.T).std()))
+    return w.float().reshape(shape), (-(w @ mu)).float()
+
+
+def _bf16_full_state(opts, image):
+    """(b)'s float32 weights: seeded, the conv3s drawn small (a block adds
+    to its shortcut), then the RPN's and the box predictor's output layers
+    drawn around the image's own features (a float32 pass on the CPU for
+    each) by ``_bf16_spread``. Seeded heads read a random R-101's features,
+    whose common part dwarfs what tells one position or box from another:
+    every objectness is a near-tie, half the proposals are boxes of zero
+    width, and every box scores one class near 1. Drawn: the objectness
+    and the box deltas spread by BF16_HEAD_STD, and the classifier by the
+    gain at which BF16_CONFIDENT_SHARE of the proposals' best foreground
+    scores reach BF16_CONFIDENT."""
+    import torch
+    import torch.nn.functional as F
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+    )
+
+    pred = DefaultPredictor(_cfg("float32", opts), device="cpu", seed=0)
+    state = pred.model.state_dict()
+    gen = torch.Generator().manual_seed(19)
+    for name in list(state):
+        if name.endswith("conv3.weight"):
+            w = state[name]
+            state[name] = torch.randn(w.shape, generator=gen) * (
+                0.2 / w[0].numel() ** 0.5)
+
+    def features(module, hook):
+        """The input of ``module`` in a float32 pass over the image."""
+        pred.model.load_state_dict(state)
+        got = []
+        handle = module.register_forward_pre_hook(
+            lambda m, args: got.append(hook(m, args[0])))
+        try:
+            with torch.no_grad():
+                pred(image)
+        finally:
+            handle.remove()
+        return torch.cat(got)
+
+    def rpn_hidden(head, x):  # the RPN conv's relu output, (H*W, C)
+        t = F.relu(F.conv2d(x, head.conv.weight, head.conv.bias, padding=1))
+        return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1]).double()
+
+    def draw(prefix, f, std):
+        state[prefix + "weight"], state[prefix + "bias"] = _bf16_spread(
+            f, state[prefix + "weight"].shape, gen, std)
+
+    rpn = "proposal_generator.rpn_head."
+    f = features(pred.model.proposal_generator.rpn_head, rpn_hidden)
+    draw(rpn + "objectness_logits.", f, BF16_HEAD_STD)
+    draw(rpn + "anchor_deltas.", f, BF16_HEAD_STD)
+    numbers = dict(rpn_positions=len(f))
+    f = features(pred.model.roi_heads.box_predictor,
+                 lambda m, x: x.double())
+
+    def gain(z):  # the background is the last class
+        def share(g):
+            best = torch.softmax(g * z, -1)[:, :-1].max(-1).values
+            return float((best >= BF16_CONFIDENT).double().mean())
+
+        lo, hi = 0.0, 64.0
+        for _ in range(40):
+            mid = (lo + hi) / 2
+            lo, hi = ((mid, hi) if share(mid) < BF16_CONFIDENT_SHARE
+                      else (lo, mid))
+        numbers.update(classifier_gain=hi, confident_share=share(hi))
+        return hi
+
+    box = "roi_heads.box_predictor."
+    draw(box + "cls_score.", f, gain)
+    draw(box + "bbox_pred.", f, BF16_HEAD_STD)
+    return state, dict(numbers, proposals=len(f))
+
+
+def _bf16_full_width(rule, card="cuda", batch=BF16_FULL_BATCH):
+    """(b) full R-101 width at the 512x864 bucket: one image through
+    ``DefaultPredictor`` (res4, pooled features fed T''s res4, and the
+    confident detections: held on T''s proposals, reported on each arm's
+    own), then one training step at ``batch`` on one batch with the host's
+    draws and T''s proposals handed to every arm, so that every arm
+    samples the same anchors and ROIs (the losses, the sampled counts and
+    the nine gradients). At this depth the card's bf16 is as far from the
+    CPU's as the CPU's is from its float32 (tools/bf16_card_vs_cpu.py
+    convs), so discrete outputs downstream of the proposals' selection
+    are compared, not held. The card's arm runs twice: once counted, once
+    with its kernel calls captured. Returns (launches, captured calls,
+    numbers)."""
+    import numpy as np
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        DefaultPredictor,
+        step_generators,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
+        build_model,
+    )
+
+    t0 = time.perf_counter()
+    opts = _bf16_full_opts()
+    image = _synthetic_images(19, 1, *BF16_FULL_HW)[0]
+    state, calib = _bf16_full_state(opts, image)
+    numbers = dict(calibration=calib,
+                   setup_s=time.perf_counter() - t0)
+    rng = np.random.RandomState(19)
+    xy = rng.uniform(0, [BF16_FULL_HW[1] - 200, BF16_FULL_HW[0] - 200],
+                     (1, 256, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(16, 200, (1, 256, 2))], -1).astype(np.float32))
+    (train_images, train_gt), = train_batches(
+        19, 1, batch, h=BF16_FULL_HW[0], w=BF16_FULL_HW[1],
+        bucket=(512, 864))
+    case = f"full width train step, batch {batch}"
+    shared = {}
+
+    def hand(run_rpn, key):
+        """``run_rpn`` returning the first arm's (T''s) proposals."""
+        def handed(feat_rpn, images, train):
+            logits, deltas, own = run_rpn(feat_rpn, images, train)
+            given = shared.setdefault(key, own.to("cpu"))
+            return logits, deltas, given.to(feat_rpn.device)
+        return handed
+
+    def arm(dev, dt):
+        cfg = _cfg(dt, opts)
+        pred = DefaultPredictor(cfg, device=dev, state_dict=state)
+        out = {}
+        # end to end, each arm on its own proposals: reported, not held;
+        # its res4 read on the way
+        feats = []
+        hook = pred.model.backbone.register_forward_hook(
+            lambda m, args, o: feats.append(o["res4"].detach()))
+        try:
+            o = pred(image)
+        finally:
+            hook.remove()
+        out[("e", "full width predictor, own proposals", "")] = [
+            (o["boxes"], o["classes"])]
+        shared.setdefault("res4", feats[0].cpu())  # T''s, fed to every arm
+        out[("t", "full width predictor", "res4")] = _np(feats[0])
+        with torch.no_grad():
+            x = shared["res4"].to(pred.device, pred.model.dtype)
+            out[("t", "full width predictor", "pooled")] = _np(
+                pred.model.roi_heads.pooled_features(
+                    x, boxes.to(pred.device)))
+        # held: the box head, box decoding and final NMS on T''s proposals
+        pred.model.run_rpn = hand(pred.model.run_rpn, "test proposals")
+        o = pred(image)
+        out[("d", "full width predictor, T' proposals", "")] = [
+            (o["boxes"], o["classes"])]
+        diag = dict(confident=len(o["scores"]))
+        del pred
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        model.to(dev).train()
+        model.run_rpn = hand(model.run_rpn, "proposals")
+        losses = model.forward_train(train_images.to(dev), train_gt.to(dev),
+                                     *step_generators(0, 0, "cpu"))
+        sum(v for k, v in losses.items()
+            if not k.startswith("metric/")).backward()
+        for k, v in losses.items():
+            if not k.startswith("metric/"):
+                out[("t", case, k)] = _np(v)
+        diag.update(fg=float(losses["metric/roi_num_fg_samples"]),
+                    pos_anchors=float(losses["metric/rpn_num_pos_anchors"]))
+        named = dict(model.named_parameters())
+        for n in BF16_GRADS:
+            out[("t", case, n)] = _np(named[n].grad)
+        del model, losses, named
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        return out, diag
+
+    arms, diags, secs = {}, {}, {}
+    for name, dev, dt in (("T'", "cpu", "bfloat16"),
+                          ("R'", "cpu", "float32")):
+        s0 = time.perf_counter()
+        arms[name], diags[name] = arm(dev, dt)
+        secs[name] = time.perf_counter() - s0
+    s0 = time.perf_counter()
+    read = _reset_counts()
+    arms["C"], diags["C"] = arm(card, "bfloat16")
+    launches = read()
+    secs["C"] = time.perf_counter() - s0
+    calls = None
+    if torch.device(card).type == "cuda":
+        s0 = time.perf_counter()
+        calls = _plain_copies(capture_kernel_inputs(
+            lambda: arm(card, "bfloat16")))
+        secs["C captured"] = time.perf_counter() - s0
+    log(f"bf16 vs CPU (b): classifier {calib}; by arm {diags}")
+    for k in ("fg", "pos_anchors"):
+        rule.same(f"{case}: sampled {k}",
+                  all(d[k] == diags["T'"][k] for d in diags.values()),
+                  f"{k} on every arm, T''s proposals handed to each")
+    _bf16_compare(rule, arms)
+    numbers.update(seconds=secs, diag=diags)
+    return launches, calls, numbers
+
+
+def phase_bf16_vs_cpu(card, out_dir=None):
+    """Phase 19 under the backend flags of a fresh process, as the port
+    serves and trains in bf16 (earlier phases turn cuDNN's TF32 off), each
+    restored after."""
+    import torch
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+             cudnn.benchmark)
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    cudnn.deterministic = cudnn.benchmark = False
+    try:
+        return _phase_bf16_vs_cpu(card, out_dir)
+    finally:
+        (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+         cudnn.benchmark) = saved
+
+
+def _check_captured(label, calls, launches):
+    """Every captured NMS, ROIAlign forward and backward call held to its
+    plain version (bf16 ROIAlign within ROI_BF16_TOL), and the captured
+    counts equal to the counted run's launches."""
+    import torch
+
+    k0 = time.perf_counter()
+    for i, args in enumerate(calls["nms"]):
+        check_nms(f"{label}_{i}", *args)
+    for i, args in enumerate(calls["roi_align"]):
+        check_roi_align(f"{label}_{i}", args,
+                        ROI_BF16_TOL if args[0].dtype == torch.bfloat16
+                        else ROI_F32_TOL, reps=3)
+    for i, args in enumerate(calls["roi_align_bwd"]):
+        check_roi_align_bwd(f"{label}_{i}", args, reps=3)
+    log(f"bf16 vs CPU {label}: every captured kernel call held to its plain "
+        f"version: NMS {len(calls['nms'])}, ROIAlign forward "
+        f"{len(calls['roi_align'])}, backward {len(calls['roi_align_bwd'])} "
+        f"({time.perf_counter() - k0:.1f} s)")
+    captured = {"greedy_nms": len(calls["nms"]),
+                "roi_align_v2_fwd": len(calls["roi_align"]),
+                "roi_align_v2_bwd": len(calls["roi_align_bwd"])}
+    if launches != captured:
+        raise PhaseError(f"bf16 vs CPU {label}: launches {launches} against "
+                         f"the captured calls {captured}")
+
+
+def _phase_bf16_vs_cpu(card, out_dir):
+    """19. The default compute dtype, bfloat16, on the card against the
+    CPU (rule 4 of the bf16 parity tests: C the card's bf16, T' the CPU's
+    bf16, R' the CPU's float32, the port alone): (a) every case of
+    tests/test_torch_bf16_*.py (tools/bf16_parity.py) at their tiny size,
+    counted, then again with every kernel call captured and held to its
+    plain version; (b) one image and one training step at full R-101 width
+    at the 512x864 bucket, its kernel calls captured and held likewise.
+    ``out_dir``: where each comparison's two sides go (bf16_vs_cpu.json).
+    Returns ({path: launches}, numbers)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    flags = dict(
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        cudnn_deterministic=torch.backends.cudnn.deterministic,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        bf16_reduced_reduction=torch.backends.cuda.matmul
+        .allow_bf16_reduced_precision_reduction)
+    rule = _Rule4()
+    states = _bf16_tiny_states()
+    arms, shared = {}, {}
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arm, dev, dt in (("T'", "cpu", torch.bfloat16),
+                             ("R'", "cpu", torch.float32)):
+            s0 = time.perf_counter()
+            arms[arm] = _bf16_tiny_arm(dev, dt, states, shared, tmp)
+            secs[arm] = time.perf_counter() - s0
+        s0 = time.perf_counter()
+        read = _reset_counts()
+        arms["C"] = _bf16_tiny_arm("cuda", torch.bfloat16, states, shared,
+                                   tmp)
+        _bf16_same_inputs(rule, shared["rpn_head"])
+        tiny_launches = read()
+        secs["C"] = time.perf_counter() - s0
+        _bf16_compare(rule, arms)
+        log(f"bf16 vs CPU (a) tiny: {rule.summary()}; launches "
+            f"{tiny_launches}; seconds by arm "
+            f"{ {k: round(v, 1) for k, v in secs.items()} }")
+        calls = capture_kernel_inputs(lambda: (
+            _bf16_tiny_arm("cuda", torch.bfloat16, states, shared, tmp),
+            _bf16_same_inputs(_Rule4(), shared["rpn_head"])))
+    _check_captured("(a)", calls, tiny_launches)
+    n_tiny = len(rule.rows)
+    full_launches, full_calls, full = _bf16_full_width(rule)
+    rows_b = rule.rows[n_tiny:]
+    log(f"bf16 vs CPU (b) full width: " + "; ".join(
+        f"{r['case']} {r['name']}: " + (
+            f"e(C) {r['e_card']:.4e}, e(T') {r['e_cpu_bf16']:.4e}"
+            if r["rule"] == 1 else
+            f"C matches {r['card_in_cpu_bf16']} in T', T' "
+            f"{r['cpu_bf16_in_f32']} in R' of {r['valid']}"
+            + ("" if r["held"] else " (reported, not held)")
+            if r["rule"] == 3 else f"equal {r['equal']}")
+        for r in rows_b) + f"; launches {full_launches}; seconds "
+        f"{ {k: round(v, 1) for k, v in full['seconds'].items()} }, "
+        f"set-up {full['setup_s']:.1f}")
+    _check_captured("(b)", full_calls, full_launches)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "bf16_vs_cpu.json"), "w") as f:
+            json.dump(dict(card=card, flags=flags, rows=rule.rows,
+                           full_width=full, failed=rule.failed), f,
+                      indent=1, default=str)
+    secs_total = time.perf_counter() - t0
+    zero = [k for k in KERNEL_NAMES
+            if not tiny_launches[k] or not full_launches[k]]
+    if zero:
+        raise PhaseError(f"bf16 vs CPU: no launch of {zero} "
+                         f"({tiny_launches}, {full_launches})")
+    if rule.failed:
+        raise PhaseError("bf16 vs CPU: rule 4 fails: "
+                         + "; ".join(rule.failed))
+    log(f"bf16 vs CPU summary (phase 19; {card}): {len(rule.rows)} "
+        f"comparisons hold; (b) {rule.summary(rows_b)}; card flags "
+        f"{flags}; {secs_total:.1f} s")
+    return {"bf16_vs_cpu_tiny": tiny_launches,
+            "bf16_vs_cpu_full_width": full_launches}, dict(
+                seconds=secs_total, rows=rule.rows)
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
@@ -4043,6 +4764,7 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         gate_counts, _ = phase_generalization(tmp, card)
         card_cpu_counts, _ = phase_card_vs_cpu(tmp, card)
+    bf16_counts, _ = phase_bf16_vs_cpu(card)
     log(f"serving summary (phase 12; {card}): bf16 DefaultPredictor "
         f"requests {[round(x, 2) for x in serving['DefaultPredictor']['request_ms']]}"
         f" ms, predict_batch(8) "
@@ -4116,7 +4838,8 @@ def main(argv) -> int:
             **{path: c[name] for path, c in learning_counts.items()},
             "spatial_partition_serving": spatial_counts[name],
             **{path: c[name] for path, c in gate_counts.items()},
-            **{path: c[name] for path, c in card_cpu_counts.items()}}
+            **{path: c[name] for path, c in card_cpu_counts.items()},
+            **{path: c[name] for path, c in bf16_counts.items()}}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
         if name != "greedy_nms":  # StandardROIHeads' launch shape

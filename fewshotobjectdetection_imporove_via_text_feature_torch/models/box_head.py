@@ -21,6 +21,7 @@ from torch.nn import functional as F
 
 from ..ops.roi_align import roi_align
 from .fast_rcnn import FastRCNNOutputLayers
+from .layers import with_bias
 
 
 class FastRCNNConvFCHead(nn.Module):
@@ -49,13 +50,12 @@ class FastRCNNConvFCHead(nn.Module):
         x = x.to(self.dtype)
         for i in range(self.num_conv):
             conv = getattr(self, f"conv{i + 1}")
-            x = F.relu(F.conv2d(x, conv.weight.to(self.dtype),
-                                conv.bias.to(self.dtype), padding=1))
+            x = F.relu(with_bias(F.conv2d, x, conv.weight, conv.bias,
+                                 padding=1))
         x = x.flatten(1)
         for i in range(self.num_fc):
             fc = getattr(self, f"fc{i + 1}")
-            x = F.relu(F.linear(x, fc.weight.to(self.dtype),
-                                fc.bias.to(self.dtype)))
+            x = F.relu(with_bias(F.linear, x, fc.weight, fc.bias))
         return x.float()
 
 

@@ -21,6 +21,7 @@ from ..ops.matcher import match_proposals
 from ..ops.nms import nms_auto, top_k
 from ..ops.sampler import subsample_labels
 from ..structures import GTInstances, Proposals
+from .layers import with_bias
 
 
 def cell_anchors(sizes=(32, 64, 128, 256, 512),
@@ -63,10 +64,8 @@ class RPNHead(nn.Module):
 
     @staticmethod
     def _conv(conv, x):
-        return torch.nn.functional.conv2d(
-            x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-            conv.stride, conv.padding,
-        )
+        return with_bias(torch.nn.functional.conv2d, x, conv.weight,
+                         conv.bias, conv.stride, conv.padding)
 
     def forward(self, x):
         t = torch.relu(self._conv(self.conv, x))
