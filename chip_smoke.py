@@ -235,13 +235,34 @@ Phases, each of which fails the run on error:
      features, detections) and one training step at batch 2 with host
      draws (every loss, nine gradients); each comparison's two sides
      printed, a failure of any fails the run.
+ 20. the repository's entry points on the port, on phase 9's synthetic VOC,
+     phase 10's synthetic COCO and phase 9's full-size seeded Caffe2 R-101
+     .pkl and torchvision .pth: (a) ``…_torch/tools/preflight_real_voc``
+     and ``preflight_real_coco`` as the run scripts call them: the weight
+     items OK, the synthetic trees refused, exit 1 with "Nothing was
+     started."; ``…_torch/tools/run_real_voc.sh`` stops at that gate with
+     no output directory; (b) from a scratch working directory whose
+     configs/voc/defrcn_det_r101_base1.yaml is the shipped config with
+     ENTRY_STEPS steps, PCB on and EVAL_THRESHOLDS, with
+     tools/create_config.py and extract_results.py linked in and
+     datasets/ phase 9's images with each year's sets cut to their first
+     ENTRY_IMAGES: ``generate_class_embeddings``, then
+     ``run_text_train_teacher.sh`` (teacher base training at full width in
+     bf16, randinit surgery) and ``run_visualize.sh`` (``--eval-only`` with
+     PCB, then the predictions drawn), unmodified, then
+     ``visualize_confusion_matrix``: every file written, AP50 finite, the
+     launches of both CLI processes held to their steps and evaluation
+     batches (``FSODTF_LAUNCH_COUNTS``); (c) every NMS and ROIAlign forward
+     and backward call of one more training step of the teacher from its
+     trained weights, and of one evaluation batch with PCB, against the
+     plain versions (phases 9 and 11's checks).
 
 Kernel times are those of a call enqueued from Python, as the main path
 makes it (the mean over back-to-back calls on the stream); each is printed
 beside the device time of one call replayed from a CUDA graph.
 
 Prints one JSON line with every kernel's numbers (launches summed over the
-main paths of phases 5, 8 (b) and 9-19, by path, PCB's apart, launches per
+main paths of phases 5, 8 (b) and 9-20, by path, PCB's apart, launches per
 train step, and the ROIAlign kernels' numbers at StandardROIHeads'
 bin_stride 1),
 then the card's name and power limit, then as the last line
@@ -1375,6 +1396,51 @@ RESIDENT_STEPS = 5  # one loader batch stepped again, without and with a
 # loader decoding beside the steps
 
 
+# phases 9 and 10's synthetic data, made by the port's makers in processes
+# of their own (below the card's phases in priority) while the kernels
+# build and phases 3-8 run: the 800 VOC images a year took 50-71 s of a
+# run's wall before
+_MAKERS = []
+
+
+def start_maker(tool, *args):
+    """``…_torch/tools/<tool>`` started as a process. Returns its handle
+    for ``wait_maker``; the process is stopped at exit if still running."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PORT_MODULE}.tools.{tool}", *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, preexec_fn=lambda: os.nice(10))
+    _MAKERS.append(proc)
+    return proc, time.perf_counter()
+
+
+def start_voc(root):
+    """Phase 9's VOC: WORKFLOW_IMAGES images of 500x375 a year."""
+    return start_maker("make_synthetic_voc", "--root", root, "--images",
+                       str(WORKFLOW_IMAGES), "--image-size", "500", "375")
+
+
+def start_coco(root):
+    """Phase 10's COCO: COCO_TRAIN_IMAGES trainval and COCO_TEST_IMAGES
+    test images of 640x480."""
+    return start_maker("make_synthetic_coco", "--root", root,
+                       "--train-images", str(COCO_TRAIN_IMAGES),
+                       "--test-images", str(COCO_TEST_IMAGES),
+                       "--image-size", "640", "480")
+
+
+def wait_maker(made, label):
+    """Wait for a ``start_maker`` process. Returns (its seconds, the
+    seconds waited here)."""
+    proc, t0 = made
+    t_wait = time.perf_counter()
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise PhaseError(f"{label}: exit {proc.returncode}:\n{out[-2000:]}")
+    now = time.perf_counter()
+    return now - t0, now - t_wait
+
+
 # evaluation thresholds of phases 9 and 10: a briefly trained random
 # detector scores every box below the configs' SCORE_THRESH_TEST (0.05)
 # and keeps none, so PCB would rescore nothing; at 0 each image keeps its
@@ -1416,7 +1482,7 @@ def _drained(loader):
     return finish
 
 
-def phase_workflow(tmp, tv_pth, profile_dir=None):
+def phase_workflow(tmp, tv_pth, profile_dir=None, made=None):
     """The few-shot workflow through the port's CLI at full width, on
     synthetic VOC at 500x375: the loader alone; base training from a
     synthetic Caffe2 ImageNet .pkl, built as cli.do_train builds it, fed by
@@ -1427,9 +1493,10 @@ def phase_workflow(tmp, tv_pth, profile_dir=None):
     and the evaluation of the test set with PCB (``tv_pth`` its ResNet)
     through cli.main, then the evaluation again with PCB off; the kernels
     checked on one evaluation batch's own inputs, PCB's calls included;
-    extract_results.py. Returns the kernel launches of the loader-fed
-    training, of the fine-tune with its evaluation and of the evaluation
-    with PCB off, and the numbers to print."""
+    extract_results.py. ``made``: a ``start_voc`` handle already making
+    the VOC under ``tmp``/datasets (else it is started here). Returns the kernel launches of the
+    loader-fed training, of the fine-tune with its evaluation and of the
+    evaluation with PCB off, and the numbers to print."""
     import math
     import shutil
     import statistics
@@ -1455,9 +1522,6 @@ def phase_workflow(tmp, tv_pth, profile_dir=None):
     from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
         model_surgery,
     )
-    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_voc import (
-        make_voc,
-    )
     from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_weights import (
         write_c2_pkl,
     )
@@ -1468,12 +1532,12 @@ def phase_workflow(tmp, tv_pth, profile_dir=None):
     except ImportError:
         pil = "no PIL"
     root = os.path.join(tmp, "datasets")
-    t0 = time.perf_counter()
-    make_voc(root, images=WORKFLOW_IMAGES, image_size=(500, 375))
+    made_s, waited = wait_maker(made or start_voc(root),
+                                "make_synthetic_voc")
     os.environ["FSODTF_DATASETS"] = root
     log(f"workflow: synthetic VOC, {WORKFLOW_IMAGES} images of 500x375 a "
-        f"year, made in {time.perf_counter() - t0:.1f} s; {pil}; native "
-        f"decode core {'built' if native_io.available() else 'unavailable'}")
+        f"year, made in {made_s:.1f} s ({waited:.1f} s waited here); {pil}; "
+        f"native decode core {'built' if native_io.available() else 'unavailable'}")
     runs = os.path.join(tmp, "runs")
     base_out = os.path.join(runs, "base1")
     # the base config's MODEL.WEIGHTS: an ImageNet R-101 in Caffe2 format
@@ -1728,7 +1792,7 @@ def phase_workflow(tmp, tv_pth, profile_dir=None):
         fed_window_ms=window, resident_bucket=bucket, resident_ms=resident,
         contended_ms=contended, eval_batch=cli.EVAL_BATCH_SIZE,
         eval_images_per_s=1 / timing["s_per_image"], pcb=pcb_nums,
-        datasets=root, ft_config=ft_config, final=final,
+        datasets=root, ft_config=ft_config, final=final, pkl=pkl,
         off_bbox=off_results["voc_2007_test_all1"]["bbox"],
         off_counts=off_counts, off_images_per_s=1 / off["s_per_image"])
 
@@ -1829,7 +1893,8 @@ def _fmt_pcb(d):
             f"{d['share_of_eval_wall']:.4f} of the evaluation's wall time")
 
 
-def check_eval_batch(config, weights, dataset, tv_pth, chunks, label):
+def check_eval_batch(config, weights, dataset, tv_pth, chunks, label,
+                     opts=()):
     """Phases 3 and 4 again on one evaluation batch's own inputs, at the
     CLI's batch: NMS at both sites and the ``chunks`` res5 ROIAlign calls
     of the fine-tuned detector (bf16); then a PCB block of the same config
@@ -1838,7 +1903,8 @@ def check_eval_batch(config, weights, dataset, tv_pth, chunks, label):
     within ROI_F32_TOL, one for each padded size among the images it
     rescores); and that batch's PCB scores, no class excluded, through the
     kernels against those through plain_ops(), float32 with TF32 off and
-    deterministic convolutions, within PCB_SCORE_TOL.
+    deterministic convolutions, within PCB_SCORE_TOL. ``opts`` are merged
+    last (phase 20: the text teacher's head).
     Returns PCB's numbers."""
     import numpy as np
     import torch
@@ -1862,7 +1928,8 @@ def check_eval_batch(config, weights, dataset, tv_pth, chunks, label):
     cfg.merge_from_file(config)
     cfg.merge_from_list(["MODEL.WEIGHTS", weights,
                          "TPU.COMPUTE_DTYPE", "bfloat16",
-                         "TEST.PCB_MODELPATH", tv_pth, *EVAL_THRESHOLDS])
+                         "TEST.PCB_MODELPATH", tv_pth, *EVAL_THRESHOLDS,
+                         *opts])
     model = cli.build_test_model(cfg)
     feed = device_batches(build_detection_test_loader(
         cfg, dataset, batch_size=cli.EVAL_BATCH_SIZE, prefetch=False,
@@ -1966,12 +2033,13 @@ COCO_FT_STEPS = 2
 COCO_BASE = os.path.join(ROOT, "configs", "coco", "defrcn_det_r101_base.yaml")
 
 
-def phase_coco(tmp, tv_pth):
+def phase_coco(tmp, tv_pth, made=None):
     """COCO at 80 classes through the CLI at full width: a seeded 60-class
     model saved as a detectron2 .pth, randinit surgery 60 -> 80, the gfsod
     1-shot seed-0 config, a fine-tune and the evaluation with PCB; the
-    kernels on one COCO evaluation batch's own inputs. Returns the launches
-    and the numbers to print."""
+    kernels on one COCO evaluation batch's own inputs. ``made``: a
+    ``start_coco`` handle already making the COCO under ``tmp``/datasets
+    (else it is started here). Returns the launches and the numbers to print."""
     import math
     import shutil
 
@@ -1993,18 +2061,14 @@ def phase_coco(tmp, tv_pth):
     from fewshotobjectdetection_imporove_via_text_feature_torch.tools import (
         model_surgery,
     )
-    from fewshotobjectdetection_imporove_via_text_feature_torch.tools.make_synthetic_coco import (
-        make_coco,
-    )
 
     root = os.path.join(tmp, "datasets")
-    t0 = time.perf_counter()
-    make_coco(root, train_images=COCO_TRAIN_IMAGES,
-              test_images=COCO_TEST_IMAGES, image_size=(640, 480))
+    made_s, waited = wait_maker(made or start_coco(root),
+                                "make_synthetic_coco")
     os.environ["FSODTF_DATASETS"] = root
     log(f"coco: synthetic COCO, {COCO_TRAIN_IMAGES} trainval and "
         f"{COCO_TEST_IMAGES} test images of 640x480, 1-shot seed 0, made "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {made_s:.1f} s ({waited:.1f} s waited here)")
 
     # a base model as detectron2 saves one converted from another format:
     # numpy arrays under "model"
@@ -4582,6 +4646,291 @@ def _phase_bf16_vs_cpu(card, out_dir):
                 seconds=secs_total, rows=rule.rows)
 
 
+# ----------------------------------------------------------------- phase 20
+PORT_TOOLS = os.path.join(
+    ROOT, "fewshotobjectdetection_imporove_via_text_feature_torch", "tools")
+PORT_MODULE = "fewshotobjectdetection_imporove_via_text_feature_torch"
+# (b)'s working directory: its configs/voc/defrcn_det_r101_base1.yaml is
+# the shipped config with this schedule, its evaluation at EVAL_THRESHOLDS
+# with PCB on (the base config leaves PCB off; the visualizer needs
+# detections to draw); its datasets/ holds phase 9's images and
+# annotations with each year's image sets cut to their first ENTRY_IMAGES
+# (one evaluation batch of 32): each script evaluates the test set, and
+# phase 9's 800 made a CLI's evaluation 30 s on an H100 (700 W)
+ENTRY_STEPS = 10
+ENTRY_IMAGES = 32
+ENTRY_YAML = """_BASE_: "{base}"
+MODEL:
+  ROI_HEADS: {{SCORE_THRESH_TEST: 0.0}}
+SOLVER: {{MAX_ITER: {steps}, CHECKPOINT_PERIOD: 0}}
+TEST: {{PCB_ENABLE: True, PCB_LOWER: 0.0}}
+SEED: 0
+"""
+ENTRY_SCRIPTS = ("run_text_train_teacher.sh", "run_visualize.sh")
+_ANSI = "\033[32m", "\033[31m", "\033[0m"
+
+
+def _plain(text):
+    for code in _ANSI:
+        text = text.replace(code, "")
+    return text
+
+
+def _entry_start(cmd, cwd, env):
+    """``cmd`` started as a subprocess, its output kept."""
+    return subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), \
+        time.perf_counter()
+
+
+def _entry_finish(started, label):
+    """Wait for a process of ``_entry_start``. Returns (exit code, output,
+    seconds from its start)."""
+    proc, t0 = started
+    text = proc.communicate()[0]
+    secs = time.perf_counter() - t0
+    log(f"entry points: {label} exit {proc.returncode} in {secs:.1f} s")
+    return proc.returncode, _plain(text), secs
+
+
+def _preflight_items(text):
+    """{item: "OK" or "MISSING"} of a preflight report."""
+    items = {}
+    for ln in text.splitlines():
+        if ln.startswith("[OK] ") or ln.startswith("[MISSING] "):
+            verdict, name = ln[1:].split("] ", 1)
+            items[name] = verdict
+    return items
+
+
+def _entry_datasets(src, dst, images):
+    """``dst``: the VOC trees of ``src`` (images and annotations linked),
+    each year's trainval and test sets cut to their first ``images``."""
+    for year in ("VOC2007", "VOC2012"):
+        sets = os.path.join(dst, year, "ImageSets", "Main")
+        os.makedirs(sets)
+        for sub in ("Annotations", "JPEGImages"):
+            os.symlink(os.path.join(src, year, sub),
+                       os.path.join(dst, year, sub))
+        for split in ("trainval", "test"):
+            with open(os.path.join(src, year, "ImageSets", "Main",
+                                   split + ".txt")) as f:
+                ids = [ln.strip() for ln in f if ln.strip()][:images]
+            with open(os.path.join(sets, split + ".txt"), "w") as f:
+                f.write("\n".join(ids))
+
+
+def phase_entry_points(tmp, workflow, coco_root, tv_pth, card):
+    """20. The repository's entry points on the port. (a) the preflights on
+    phase 9's and 10's synthetic trees and phase 9's full-size seeded
+    weights: the weight items OK, the tree items refused, exit 1, and
+    run_real_voc.sh stopping at its gate with no output directory, run
+    beside the class embeddings' generation and (b)'s first script; (b)
+    run_text_train_teacher.sh and run_visualize.sh, unmodified, from a
+    scratch working directory whose configs/voc holds the shipped base
+    config with a short schedule, then the similarity figure beside the
+    drawings; (c) the kernels on one training step and one evaluation
+    batch of (b)'s teacher, against their plain versions. Returns ({path:
+    launches}, numbers)."""
+    import math
+
+    import torch
+    from fewshotobjectdetection_imporove_via_text_feature_torch import cli
+    from fewshotobjectdetection_imporove_via_text_feature_torch.config import (
+        get_cfg,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.data import (
+        register_all,
+    )
+    from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
+        Trainer,
+    )
+
+    t_phase = time.perf_counter()
+    os.makedirs(tmp, exist_ok=True)
+    out = {}
+    voc, pkl = workflow["datasets"], workflow["pkl"]
+    # the scripts run as a user starts them: no DEVICE (cuda is their
+    # default), datasets under the working directory
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DEVICE", "FSODTF_DATASETS", "PYTHONPATH")}
+    tool_env = dict(env, PYTHONPATH=ROOT)
+
+    def tool(name, *args):
+        return [sys.executable, "-m", f"{PORT_MODULE}.tools.{name}", *args]
+
+    # (b)'s working directory
+    wd = os.path.join(tmp, "entry")
+    datasets = os.path.join(wd, "datasets")
+    config = os.path.join(wd, "configs", "voc", "defrcn_det_r101_base1.yaml")
+    os.makedirs(os.path.dirname(config))
+    os.makedirs(os.path.join(wd, "tools"))
+    with open(config, "w") as f:
+        f.write(ENTRY_YAML.format(base=CONFIG, steps=ENTRY_STEPS))
+    for name in ("create_config.py", "extract_results.py"):
+        os.symlink(os.path.join(ROOT, "tools", name),
+                   os.path.join(wd, "tools", name))
+    _entry_datasets(voc, datasets, ENTRY_IMAGES)
+
+    # (a) the preflights, as the run scripts call them, from the repo root,
+    # and the class embeddings, all started together
+    weights = ("--r101", pkl, "--pcb", tv_pth)
+    save = os.path.join(tmp, "real_voc")
+    started = {
+        "voc": _entry_start(tool("preflight_real_voc", "--root", voc,
+                                 "--shot", "10", "--seeds", "0", *weights),
+                            ROOT, tool_env),
+        "coco": _entry_start(tool("preflight_real_coco", "--root",
+                                  coco_root, "--shot", "1", "--seeds", "0",
+                                  *weights), ROOT, tool_env),
+        "gate": _entry_start(
+            ["bash", os.path.join(PORT_TOOLS, "run_real_voc.sh")], tmp,
+            dict(env, DATA_ROOT=voc, IMAGENET_PRETRAIN=pkl,
+                 PCB_PRETRAIN=tv_pth, SAVE_DIR=save)),
+    }
+    walls = {}
+    rc, text, walls["generate_class_embeddings"] = _entry_finish(
+        _entry_start(tool("generate_class_embeddings"), wd, tool_env),
+        "generate_class_embeddings")
+    if rc != 0:
+        raise PhaseError(f"generate_class_embeddings: exit {rc}:\n{text}")
+
+    # (b) the teacher's script, while (a) runs on
+    counts_file = os.path.join(tmp, "entry_launches.jsonl")
+    open(counts_file, "w").close()
+    env_b = dict(env, IMAGENET_PRETRAIN=pkl, PCB_PRETRAIN=tv_pth,
+                 FSODTF_LAUNCH_COUNTS=counts_file)
+    teacher_run = _entry_start(
+        ["bash", os.path.join(PORT_TOOLS, ENTRY_SCRIPTS[0])], wd, env_b)
+
+    trees = {"voc": ("VOC2007 tree", "VOC2012 tree"),
+             "coco": ("coco/trainval2014 tree", "coco/val2014 tree",
+                      "cocosplit/datasplit jsons")}
+    for key in ("voc", "coco"):
+        rc, text, secs = _entry_finish(started[key], f"preflight_real_{key}")
+        items = _preflight_items(text)
+        bad = [w for w in ("R-101.pkl import coverage",
+                           "PCB torchvision weights")
+               if items.get(w) != "OK"] + [
+            t for t in trees[key] if items.get(t) != "MISSING"]
+        if rc != 1 or bad or "Nothing was started." not in text or (
+                "synthetic smoke data" not in text):
+            raise PhaseError(f"preflight_real_{key}: exit {rc}, items "
+                             f"{items} ({bad} wrong):\n{text[-2000:]}")
+        out[f"preflight_{key}"] = dict(items=items, seconds=secs)
+    rc, text, secs = _entry_finish(started["gate"], "run_real_voc.sh")
+    if rc == 0 or "Preflight FAILED" not in text or os.path.exists(save):
+        raise PhaseError(f"run_real_voc.sh: exit {rc}, output directory "
+                         f"{'written' if os.path.exists(save) else 'absent'}"
+                         f":\n{text[-2000:]}")
+    log(f"entry points (a): both preflights pass the full-size seeded "
+        f"R-101 .pkl and torchvision .pth and refuse the synthetic trees "
+        f"(VOC {out['preflight_voc']['items']}; COCO "
+        f"{out['preflight_coco']['items']}), exit 1; run_real_voc.sh stops "
+        f"at its gate (exit {rc}, {secs:.1f} s), no output directory")
+
+    teacher = os.path.join(wd, "outputs", "singleHeadAtt_Text",
+                           "teacher_base", "defrcn_det_r101_base1")
+    final = os.path.join(teacher, "model_final.pth")
+    figure = os.path.join(teacher, "similarity.png")
+    figure_run = None
+    for i, script in enumerate(ENTRY_SCRIPTS):
+        rc, text, walls[script] = _entry_finish(
+            teacher_run if i == 0 else _entry_start(
+                ["bash", os.path.join(PORT_TOOLS, script)], wd, env_b),
+            script)
+        with open(os.path.join(tmp, script + ".log"), "w") as f:
+            f.write(text)
+        if rc != 0:
+            raise PhaseError(f"{script}: exit {rc}; last output:\n"
+                             f"{text[-3000:]}")
+        if i == 0:  # the similarity figure beside run_visualize.sh
+            figure_run = _entry_start(
+                tool("visualize_confusion_matrix", "--output", figure), wd,
+                tool_env)
+    rc, text, walls["visualize_confusion_matrix"] = _entry_finish(
+        figure_run, "visualize_confusion_matrix")
+    if rc != 0:
+        raise PhaseError(f"visualize_confusion_matrix: exit {rc}:\n{text}")
+    with open(os.path.join(teacher, "coco_instances_results.json")) as f:
+        dets = json.load(f)
+    drawn = os.listdir(os.path.join(teacher, "visualizations"))
+    images = len({d["image_id"] for d in dets})
+    figures = [p for p in (figure, figure[:-4] + ".csv")
+               if os.path.exists(p)]
+    missing = [p for p in (final, os.path.join(
+        teacher, "model_reset_surgery.pth")) if not os.path.isfile(p)]
+    if missing or not dets or images != ENTRY_IMAGES or \
+            len(drawn) != images or not figures:
+        raise PhaseError(f"entry points (b): missing {missing}, "
+                         f"{len(dets)} detections on {images} images, "
+                         f"{len(drawn)} drawn, figure {figures}")
+
+    # the launches the two CLI processes owe, as phase 9 works them out
+    os.environ["FSODTF_DATASETS"] = datasets
+    register_all(datasets)
+    cfg = get_cfg()
+    cfg.merge_from_file(config)
+    runs = [json.loads(ln) for ln in open(counts_file) if ln.strip()]
+    batches = -(-ENTRY_IMAGES // cli.EVAL_BATCH_SIZE)
+    step_chunks = -(-cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE
+                    // cfg.TPU.ROI_CHUNK)
+    chunks = -(-cfg.MODEL.RPN.POST_NMS_TOPK_TEST // cfg.TPU.ROI_CHUNK)
+    proto, per_batch = pcb_expected_launches(cfg)
+    evaluation = {"greedy_nms": 2 * batches,
+                  "roi_align_v2_fwd": chunks * batches + proto
+                  + per_batch * batches, "roi_align_v2_bwd": 0}
+    training = {"greedy_nms": ENTRY_STEPS,
+                "roi_align_v2_fwd": step_chunks * ENTRY_STEPS,
+                "roi_align_v2_bwd": step_chunks * ENTRY_STEPS}
+    want = [{k: v + training[k] for k, v in evaluation.items()}, evaluation]
+    counts = {path: {k: r[k] for k in KERNEL_NAMES} for path, r in zip(
+        ("entry_points_text_teacher", "entry_points_visualize"), runs)}
+    if len(runs) != 2 or list(counts.values()) != want:
+        raise PhaseError(f"entry points (b): {len(runs)} CLI processes "
+                         f"reported {counts}, expected {want}")
+    # the evaluation's own scrape: AP50 of log.txt's last copypaste row
+    ap50 = _gate_metric(os.path.join(teacher, "log.txt"), 1)
+    if not math.isfinite(ap50):
+        raise PhaseError(f"run_visualize.sh: AP50 {ap50}")
+    out.update(walls=walls, detections=len(dets), drawn=len(drawn),
+               counts=counts)
+    log(f"entry points (b) ({card}): generate_class_embeddings, "
+        f"run_text_train_teacher.sh ({ENTRY_STEPS} "
+        f"{cfg.TPU.COMPUTE_DTYPE} steps at batch "
+        f"{cfg.SOLVER.IMS_PER_BATCH}, R-{cfg.MODEL.RESNETS.DEPTH} at its "
+        f"widths, randinit surgery), run_visualize.sh (--eval-only with PCB "
+        f"on {ENTRY_IMAGES} images, {len(dets)} detections, {len(drawn)} "
+        f"images drawn), visualize_confusion_matrix "
+        f"({os.path.basename(figures[0])}); wall by step "
+        f"{({k: round(v, 1) for k, v in walls.items()})} s; AP50 "
+        f"{ap50:.4f} (seeded weights: plumbing, not accuracy); launches "
+        f"{counts} as expected")
+
+    # (c) the kernels on one training step and one evaluation batch of the
+    # teacher, from its trained weights and (b)'s class vectors
+    teacher_opts = (*TEACHER_OPTS, "MODEL.ADDITION.EMBEDDING_PATH", datasets)
+    cfg.merge_from_list(["MODEL.WEIGHTS", final, "TEST.PCB_MODELPATH",
+                         tv_pth, "OUTPUT_DIR", os.path.join(tmp, "step"),
+                         *teacher_opts])
+    tr = Trainer(cfg)
+    tr.resume_or_load(resume=False)
+    _check_next_step(tr, "entry_points_teacher_step",
+                     launches=(1, step_chunks, step_chunks))
+    del tr
+    torch.cuda.empty_cache()
+    out["pcb"] = check_eval_batch(config, final, cfg.DATASETS.TEST[0],
+                                  tv_pth, chunks, "entry_points_eval_path",
+                                  opts=teacher_opts)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"entry points summary (phase 20; {card}): preflights and gate as "
+        f"expected; scripts {({k: round(v, 1) for k, v in walls.items()})} "
+        f"s; kernels held on the teacher's step and evaluation batch; "
+        f"phase 20 took {out['seconds']:.1f} s")
+    return counts, out
+
+
 # ------------------------------------------------- optional: --profile
 def _category(name: str) -> str:
     n = name.lower()
@@ -4696,6 +5045,12 @@ def main(argv) -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     gen = torch.Generator().manual_seed(0)
+    import tempfile
+
+    # phases 9 and 10's data, made beside the build and phases 3-8
+    data = tempfile.TemporaryDirectory()
+    made = {"voc": start_voc(os.path.join(data.name, "voc", "datasets")),
+            "coco": start_coco(os.path.join(data.name, "coco", "datasets"))}
     phase_build()
     nms = phase_nms(gen)
     roi = phase_roi_align(gen)
@@ -4727,8 +5082,6 @@ def main(argv) -> int:
         launches=None, library_ms=None,
         **{k: bwd["bfloat16_B16_R256_P7_s2"][k] for k in
            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}))
-    import tempfile
-
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_f32(tmp)
         per_step, train_counts, next_step = phase_train_bf16(
@@ -4740,17 +5093,21 @@ def main(argv) -> int:
         write_torchvision_pth,
     )
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with data as tmp:
         # TEST.PCB_MODELPATH of phases 9 and 10: a torchvision R-101
         tv_pth = os.path.join(tmp, "resnet101.pth")
         write_torchvision_pth(tv_pth, seed=0)
         fed_counts, eval_counts, off_counts, workflow = phase_workflow(
-            os.path.join(tmp, "voc"), tv_pth, profile_dir)
-        coco_counts, coco = phase_coco(os.path.join(tmp, "coco"), tv_pth)
+            os.path.join(tmp, "voc"), tv_pth, profile_dir, made["voc"])
+        coco_counts, coco = phase_coco(os.path.join(tmp, "coco"), tv_pth,
+                                       made["coco"])
         text_counts, _ = phase_text(os.path.join(tmp, "text"), workflow,
                                     tv_pth, per_step, profile_dir)
         multi_counts, multi = phase_multi_device(os.path.join(tmp, "multi"),
                                                  workflow, per_step)
+        entry_counts, _ = phase_entry_points(
+            os.path.join(tmp, "entry_points"), workflow,
+            os.path.join(tmp, "coco", "datasets"), tv_pth, card)
     with tempfile.TemporaryDirectory() as tmp:
         export_counts, server_counts, serving = phase_serving(tmp,
                                                               profile_dir)
@@ -4839,7 +5196,8 @@ def main(argv) -> int:
             "spatial_partition_serving": spatial_counts[name],
             **{path: c[name] for path, c in gate_counts.items()},
             **{path: c[name] for path, c in card_cpu_counts.items()},
-            **{path: c[name] for path, c in bf16_counts.items()}}
+            **{path: c[name] for path, c in bf16_counts.items()},
+            **{path: c[name] for path, c in entry_counts.items()}}
         k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_train_step"] = per_step[name]
         if name != "greedy_nms":  # StandardROIHeads' launch shape
@@ -4866,3 +5224,8 @@ if __name__ == "__main__":
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        for p in _MAKERS:
+            if p.poll() is None:
+                p.kill()
+                p.wait()

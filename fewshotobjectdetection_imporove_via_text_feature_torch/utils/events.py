@@ -14,6 +14,24 @@ from typing import Dict
 logger = logging.getLogger("fsodtf_torch")
 
 
+def _summary_writer(output_dir: str):
+    """A TensorBoard ``SummaryWriter`` that does not load TensorFlow.
+    ``torch.utils.tensorboard`` imports TensorFlow where it is installed
+    (about 11 s a process on an 8-core CPU host), only to write files that
+    tensorboard's own stub of the TF API writes alike. The module
+    ``tensorboard.compat.notf`` is tensorboard's marker for that stub; it
+    is set only while TensorFlow is not loaded already."""
+    import sys
+    import types
+
+    if "tensorflow" not in sys.modules:
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+    from torch.utils.tensorboard import SummaryWriter
+
+    return SummaryWriter(log_dir=output_dir)
+
+
 class MetricsLogger:
     """stdout + metrics.json + (if available) TensorBoard: the reference's
     CommonMetricPrinter/JSONWriter/TensorboardXWriter trio."""
@@ -22,9 +40,7 @@ class MetricsLogger:
         os.makedirs(output_dir, exist_ok=True)
         self.path = os.path.join(output_dir, "metrics.json")
         try:
-            from torch.utils.tensorboard import SummaryWriter
-
-            self._tb = SummaryWriter(log_dir=output_dir)
+            self._tb = _summary_writer(output_dir)
         except ImportError:  # tensorboard is optional
             self._tb = None
 

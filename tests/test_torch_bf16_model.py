@@ -39,18 +39,11 @@ import jax.numpy as jnp
 import torch
 from flax import traverse_util
 
-from fewshotobjectdetection_imporove_via_text_feature_tpu.config import (
-    get_cfg as jax_get_cfg,
-)
 from fewshotobjectdetection_imporove_via_text_feature_tpu.data.xla_preprocess import (
     device_resize_batch as jax_resize,
 )
-from fewshotobjectdetection_imporove_via_text_feature_tpu.engine.predictor import (
-    DefaultPredictor as JaxPredictor,
-)
 from fewshotobjectdetection_imporove_via_text_feature_tpu.models import (
     GeneralizedRCNN as JaxRCNN,
-    build_model as jax_build_model,
 )
 from fewshotobjectdetection_imporove_via_text_feature_tpu.models.fast_rcnn import (
     fast_rcnn_inference as jax_fast_rcnn_inference,
@@ -310,47 +303,6 @@ def _infer(rmodel, jmodel, params, port, images, port_batch):
         t = port.forward_inference(port_batch)
     return rule3(valid_detections(t), valid_detections(j),
                  valid_detections(r))
-
-
-@pytest.mark.parametrize("stride_in_1x1,padded,heads", [
-    (True, False, "Res5ROIHeads"), (True, True, "Res5ROIHeads"),
-    (False, True, "Res5ROIHeads"), (True, True, "StandardROIHeads")])
-def test_bf16_forward_inference_holds_to_jax(stride_in_1x1, padded, heads):
-    """StandardROIHeads with a conv and two fcs: its bf16 tower adds each
-    bias after the product, as flax's layers do."""
-    extra = {} if heads == "Res5ROIHeads" else dict(
-        roi_heads_name=heads, box_convfc=(1, 32, 2, 64))
-    rmodel, jmodel, params, port = flagship(stride_in_1x1=stride_in_1x1,
-                                            **extra)
-    images = tiny_inputs(padded)
-    _infer(rmodel, jmodel, params, port, jax_images(*images),
-           image_batch(*images))
-
-
-def test_bf16_predict_batch_holds_to_jax():
-    """``DefaultPredictor.predict_batch`` in bf16 against the JAX package's
-    predictors in float32 and bf16 on the same params and BGR images
-    (three bucket shapes, one repeated), in original coordinates."""
-    jcfg = {dt: cases.predictor_cfg(dt, jax_get_cfg())
-            for dt in ("float32", "bfloat16")}
-    cfg = cases.predictor_cfg("bfloat16")
-    t = DefaultPredictor(cfg, device="cpu")
-    assert t.model.dtype == torch.bfloat16
-    seed_weights(t.model)
-    h, w = cfg.TPU.IMAGE_BUCKETS[0]
-    shapes = shaped(jax_build_model(jcfg["float32"]), JaxImageBatch(
-        image=jnp.zeros((1, h, w, 3)), hw=jnp.asarray([[h, w]]),
-        orig_hw=jnp.asarray([[h, w]])), train=False)
-    params = jax_params_like(shapes, t.model)
-    r, j = (JaxPredictor(jcfg[dt], params=params)
-            for dt in ("float32", "bfloat16"))
-    images = cases.predictor_images()
-
-    def dets(outs):
-        return [(o["boxes"], o["classes"]) for o in outs]
-
-    rule3(dets(t.predict_batch(images)), dets(j.predict_batch(images)),
-          dets(r.predict_batch(images)))
 
 
 def test_bf16_device_preprocess_holds_to_jax():

@@ -32,12 +32,6 @@ from fewshotobjectdetection_imporove_via_text_feature_tpu.models import (
 from fewshotobjectdetection_imporove_via_text_feature_tpu.structures import (
     GTInstances as JaxGT,
 )
-from fewshotobjectdetection_imporove_via_text_feature_torch.engine import (
-    DefaultPredictor,
-)
-from fewshotobjectdetection_imporove_via_text_feature_torch.engine.export import (
-    ServingPredictor,
-)
 from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
     text_heads as ttext,
 )
@@ -52,7 +46,6 @@ from tests.test_torch_bf16_model import (
     shaped,
     valid_detections,
 )
-from tests.test_torch_export_serving import export_to
 from tests.test_torch_train_model import jax_grads_by_name, total_loss
 
 # the Semantic and Distillated families: tests/test_torch_bf16_semantic.py
@@ -157,18 +150,3 @@ def test_bf16_text_meta_arch_inference_holds_to_jax(meta):
     check_inference(meta)
 
 
-def test_bf16_export_serves_what_eager_bf16_serves(tmp_path):
-    """One bf16 ``torch.export`` program (``engine/export.py``) through
-    ``ServingPredictor``: bitwise the eager bf16 ``DefaultPredictor``."""
-    cfg = cases.export_cfg("bfloat16")
-    pred = DefaultPredictor(cfg, device="cpu")
-    cases.seed_weights(pred.model)
-    assert pred.model.dtype == torch.bfloat16
-    path = str(tmp_path / "bf16.fsodtf-torch")
-    export_to(path, cfg, pred)
-    serving = ServingPredictor(path, device="cpu")
-    for image in cases.export_images():
-        a, b = pred(image), serving(image)
-        assert len(a["boxes"]) > 10
-        for k in ("boxes", "scores", "classes"):
-            np.testing.assert_array_equal(a[k], b[k])

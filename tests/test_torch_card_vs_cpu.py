@@ -104,17 +104,6 @@ def _tiny_step(draw_device):
     return losses, [p.detach().clone() for p in model.parameters()]
 
 
-def test_an_exact_step_on_the_cpu_is_the_plain_step():
-    (l0, p0), (l1, p1) = _tiny_step(None), _tiny_step("cpu")
-    for a, b in zip(l0, l1):
-        assert a.keys() == b.keys()
-        assert all(torch.equal(a[k], b[k]) for k in a)
-    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
-    assert float(l0[0]["loss_cls"]) > 0
-    # a CPU step sets no flag of the card's exact float32
-    assert not torch.are_deterministic_algorithms_enabled()
-
-
 def test_gate_config_is_the_ft_and_ab_legs():
     clean = card_vs_cpu.gate_cfg("w.pth", "clean", 7, "cpu")
     sab = card_vs_cpu.gate_cfg("w.pth", "sabotaged", 7, "cpu")
@@ -141,9 +130,14 @@ def test_gate_config_is_the_ft_and_ab_legs():
         card_vs_cpu.leg_opts("half")
 
 
-@pytest.mark.parametrize("arm", ["clean", "sabotaged"])
+# the sabotaged arm's case is in test_torch_card_vs_cpu_lockstep.py
+@pytest.mark.parametrize("arm", ["clean"])
 def test_lockstep_of_the_cpu_against_itself_has_no_gap(gate_voc, tmp_path,
                                                        arm):
+    check_lockstep(gate_voc, tmp_path, arm)
+
+
+def check_lockstep(gate_voc, tmp_path, arm):
     res = card_vs_cpu.lockstep("", gate_voc, 3, arm=arm, card_device="cpu",
                                out_dir=str(tmp_path))
     first = res["first_step"]
@@ -162,31 +156,6 @@ def test_lockstep_of_the_cpu_against_itself_has_no_gap(gate_voc, tmp_path,
     assert groups["box_predictor"]["moved"] > 0
     # FREEZE_FEAT: the clean arm never moves res5; the sabotaged arm does
     assert (groups["res5"]["moved"] > 0) == (arm == "sabotaged")
-
-
-def test_a_resynced_base_leg_lockstep_of_the_cpu_has_no_gap(gate_voc,
-                                                            tmp_path):
-    # the base leg from the seed's initial weights (at batch 2: the
-    # plumbing, cheaply), the card handed the CPU's parameters and
-    # momentum before steps 1 and 2, free at step 3
-    res = card_vs_cpu.lockstep("", gate_voc, 4, arm="base", seed=9,
-                               opts=("SOLVER.IMS_PER_BATCH", "2"),
-                               card_device="cpu", out_dir=str(tmp_path),
-                               resync=3)
-    assert res["max_total_rel"] == 0.0 and res["max_update_rel"] == 0.0
-    assert [r.get("update_rel") for r in res["steps"]] == [None, 0.0, 0.0,
-                                                           None]
-    groups = res["steps"][-1]["groups"]
-    assert all(g["gap"] == 0.0 and g["moved"] > 0 for g in groups.values())
-    # each resynced step's update by parameter group: no gap, the same
-    # length and direction, so no step is over the tolerance
-    assert res["first_group_over"] is None
-    assert res["synced_equal_counts"] == 2
-    for g in res["group_updates"].values():
-        assert g["gap_max"] == 0.0 and g["norm_ratio_median"] == 1.0
-        assert g["card_longer_share"] == 0.0
-        assert g["cos_median"] == pytest.approx(1.0, abs=1e-12)
-    assert res["card_loss_above_share"] == 0.0
 
 
 @pytest.mark.skipif(not native_io.available(),
@@ -462,17 +431,3 @@ def test_conv_tape_records_and_replays_each_convolution():
         assert float((dw - dw64).norm() / dw64.norm()) < 1e-5
 
 
-def test_convs_of_the_cpu_against_itself_have_no_gap(gate_voc, tmp_path):
-    # at batch 2: the plumbing, cheaply
-    res = card_vs_cpu.conv_errors("", gate_voc, 1, arm="sabotaged",
-                                  opts=("SOLVER.IMS_PER_BATCH", "2"),
-                                  card_device="cpu", out_dir=str(tmp_path))
-    names = [r["name"] for r in res["convs"]]
-    assert names[0] == "backbone.stem.conv1.weight"
-    assert any(n.startswith("roi_heads.res5.") for n in names)
-    assert res["losses"]["card"] == res["losses"]["cpu"]
-    assert all(g == 0.0 for _, g in res["grad_gaps"])
-    for r in res["convs"]:
-        assert r["x_gap"] == 0.0 and r["gy_gap"] == 0.0
-        assert r["card"] == r["cpu"]
-        assert max(r["cpu"].values()) < 1e-4

@@ -23,20 +23,13 @@ from fewshotobjectdetection_imporove_via_text_feature_tpu.data.xla_preprocess im
     device_resize_batch as jax_resize,
     scale_boxes as jax_scale_boxes,
 )
-from fewshotobjectdetection_imporove_via_text_feature_tpu.engine.trainer import (
-    make_train_step as jax_make_train_step,
-)
 from fewshotobjectdetection_imporove_via_text_feature_tpu.evaluation import (
     inference_on_dataset as jax_inference_on_dataset,
 )
 from fewshotobjectdetection_imporove_via_text_feature_tpu.models import (
     build_model as jax_build_model,
 )
-from fewshotobjectdetection_imporove_via_text_feature_tpu.solver import (
-    build_optimizer as jax_build_optimizer,
-)
 from fewshotobjectdetection_imporove_via_text_feature_tpu.structures import (
-    GTInstances as JaxGT,
     ImageBatch as JaxImageBatch,
 )
 from fewshotobjectdetection_imporove_via_text_feature_torch.checkpoint import (
@@ -59,9 +52,7 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.models import (
     build_model,
 )
 from fewshotobjectdetection_imporove_via_text_feature_torch.solver import (
-    build_gradient_clipper,
     build_optimizer,
-    build_scheduler,
 )
 from fewshotobjectdetection_imporove_via_text_feature_torch.structures import (
     ImageBatch,
@@ -73,10 +64,8 @@ from test_torch_eval_cli import (  # noqa: F401  (voc is a fixture)
     _tiny_cfgs,
     voc,
 )
-from test_torch_solver import _step_cfg
 from tests.test_full_network_oracle import _perturb
-from tests.test_torch_model import H, W, match_detections
-from tests.test_torch_train_model import jax_params, port_gt, port_model
+from tests.test_torch_model import W, match_detections
 
 RAW = np.random.RandomState(0).randint(0, 256, (3, 256, 320, 3)).astype(
     np.uint8)
@@ -169,41 +158,6 @@ def _raw_batch():
         gc[i, :3] = rng.randint(0, 5, 3)
         gv[i, :3] = True
     return raw, hw, orig, short, flip, (gb, gc, gv)
-
-
-def test_two_sgd_steps_on_raw_batches_match_jax_make_train_step():
-    cfg = _step_cfg()
-    jmodel, params = jax_params()
-    raw, hw, orig, short, flip, (gb, gc, gv) = _raw_batch()
-    assert (hw <= (H, W)).all()
-
-    tx, _ = jax_build_optimizer(cfg, params)
-    step_fn = jax.jit(jax_make_train_step(jmodel, tx, preprocess=(W, (H, W))))
-    jp, opt_state = params, tx.init(params)
-    jimages = JaxImageBatch(image=jnp.asarray(raw), hw=jnp.asarray(hw),
-                            orig_hw=jnp.asarray(orig))
-    jgt = JaxGT(jnp.asarray(gb), jnp.asarray(gc), jnp.asarray(gv))
-    ref = []
-    for it in range(2):
-        jp, opt_state, losses = step_fn(jp, opt_state, jimages, jgt,
-                                        jax.random.PRNGKey(0), it,
-                                        jnp.asarray(short), jnp.asarray(flip))
-        ref.append(jax.device_get(losses))
-
-    model = port_model(params)
-    opt = build_optimizer(cfg, model)
-    step = make_train_step(model, opt, build_scheduler(cfg, opt),
-                           build_gradient_clipper(cfg), seed=0)
-    images = ImageBatch(torch.from_numpy(raw), torch.from_numpy(hw),
-                        torch.from_numpy(orig))
-    meta = {"short": short, "flip": flip, "target_hw": (H, W),
-            "max_size": W}
-    for it in range(2):
-        losses = step(images, port_gt(gb, gc, gv), it, meta)
-        assert losses["loss_box_reg"].item() > 0
-        for k, want in ref[it].items():
-            np.testing.assert_allclose(losses[k].item(), float(want),
-                                       rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 def test_evaluation_with_device_preprocess_matches_the_jax_package(voc):

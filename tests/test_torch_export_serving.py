@@ -42,7 +42,6 @@ from fewshotobjectdetection_imporove_via_text_feature_torch.engine.export import
     save_serving_artifact,
 )
 from test_export_serving import TINY
-from test_server import assert_detections_setmatch
 from tests.test_full_network_oracle import _perturb
 from tests.test_torch_model import match_detections
 
@@ -128,23 +127,6 @@ def test_programs_call_the_kernel_operators(artifact):
         assert targets.count("fsod.roi_align.default") == 1
 
 
-def test_multibatch_artifact_predict_batch(artifact, tmp_path):
-    cfg, pred, _, _ = artifact
-    p = str(tmp_path / "mb.fsodtf-torch")
-    meta, programs = export_to(p, cfg, pred, batch=(1, 4))
-    assert meta["batches"] == [1, 4]
-    assert len(programs) == 4  # 2 buckets x 2 batch sizes
-    serving = ServingPredictor(p, device="cpu")
-    imgs = [_image(hw, 9 + i) for i, hw in
-            enumerate([(100, 150), (150, 100), (90, 140)])]
-    outs = serving.predict_batch(imgs)
-    for im, out in zip(imgs, outs):
-        assert_detections_setmatch(out, serving(im))
-    # the same grouping as the live predictor's batches
-    for out, ref in zip(outs, pred.predict_batch(imgs)):
-        assert_detections_setmatch(out, ref)
-
-
 @pytest.mark.parametrize("hw0", [(100, 150), (150, 100)])
 def test_serving_matches_default_predictor_bitwise(artifact, hw0):
     _, pred, path, _ = artifact
@@ -192,25 +174,6 @@ def test_device_and_format_are_checked(artifact, tmp_path):
         ServingPredictor(moved, device="cpu")
     with pytest.raises(ValueError, match="not a serving artifact"):
         load_serving_artifact(jpath)
-
-
-def test_text_family_export_serves(tmp_path):
-    cfg = tiny_cfg([
-        "MODEL.ROI_HEADS.NUM_CLASSES", "15",
-        "MODEL.ROI_HEADS.NAME", "TextRes5ROIHeads",
-        "MODEL.ROI_HEADS.STUDENT_TRAINING", "True",
-        "MODEL.ADDITION.NAME", "glove",
-        "DATASETS.TRAIN", "('voc_2007_trainval_base1',)",
-    ])
-    pred = DefaultPredictor(cfg, device="cpu")
-    path = str(tmp_path / "text.fsodtf-torch")
-    meta, _ = export_to(path, cfg, pred)
-    assert len(meta["class_names"]) == 15
-    serving = ServingPredictor(path, device="cpu")
-    img = _image((100, 150), 1)
-    a, b = pred(img), serving(img)
-    for k in ("boxes", "scores", "classes"):
-        np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_batch_mismatch_rejected(artifact, tmp_path):

@@ -56,7 +56,10 @@ def test_importing_the_cli_tools_and_data_loads_no_jax_and_no_pil():
     assert {"make_synthetic_voc", "model_surgery", "serve",
             "export_serving", "dryrun_multidevice",
             "make_generalization_voc", "make_generalization_coco",
-            "train_pcb_extractor"} <= set(tools)
+            "train_pcb_extractor", "generate_class_embeddings",
+            "preflight_real_voc", "preflight_real_coco",
+            "visualize_json_results", "visualize_confusion_matrix",
+            "overfit_check"} <= set(tools)
     names = [f"{PORT}.cli", f"{PORT}.dataloader", f"{PORT}.data.native_io",
              f"{PORT}.data.loader", f"{PORT}.evaluation.voc_eval",
              f"{PORT}.utils.events", f"{PORT}.engine.hooks",
@@ -103,8 +106,14 @@ def test_port_scripts_run_the_port_and_two_root_tools_only():
 
     scripts = sorted((ROOT / PORT / "tools").glob("*.sh"))
     assert {"smoke_workflow", "check_generalization",
-            "check_generalization_coco",
-            "run_stats_protocol"} <= {p.stem for p in scripts}
+            "check_generalization_coco", "run_stats_protocol",
+            "smoke_workflow_coco", "validate_all", "run_real_voc",
+            "run_real_coco", "run_voc", "run_coco",
+            "run_text_train_teacher", "run_text_train_student",
+            "run_text_train_teacher_novel", "run_textdomination_teacher",
+            "run_textdomination_teacher_VKV", "run_novel_pure_attention",
+            "run_voc_distillation", "run_voc_distillate_rpn",
+            "run_visualize"} <= {p.stem for p in scripts}
     allowed = {"tools/create_config.py", "tools/extract_results.py"}
     for path in scripts:
         text = path.read_text()

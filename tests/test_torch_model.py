@@ -11,8 +11,6 @@ on the same head outputs (kept sets exact, boxes to a few ulp), and the whole
 ways, valid detections compared as sets.
 """
 
-import functools
-
 import numpy as np
 import pytest
 
@@ -25,9 +23,6 @@ from fewshotobjectdetection_imporove_via_text_feature_tpu.checkpoint.torch_impor
 )
 from fewshotobjectdetection_imporove_via_text_feature_tpu.models import (
     GeneralizedRCNN as JaxRCNN,
-)
-from fewshotobjectdetection_imporove_via_text_feature_tpu.models.fast_rcnn import (
-    fast_rcnn_inference as jax_fast_rcnn_inference,
 )
 from fewshotobjectdetection_imporove_via_text_feature_tpu.models.rpn import (
     select_top_proposals as jax_select,
@@ -188,35 +183,6 @@ def test_rpn_proposals_match_jax_on_the_same_head_outputs():
                                       np.asarray(jp.objectness))
 
 
-def test_fast_rcnn_inference_matches_jax_on_the_same_head_outputs():
-    rng = np.random.RandomState(3)
-    b, p, k = 2, 300, NUM_CLASSES
-    logits = (rng.randn(b, p, k + 1) * 2).astype(np.float32)
-    deltas = (rng.randn(b, p, 4 * k) * 0.3).astype(np.float32)
-    xy = rng.uniform(0, [W - 40, H - 40], (b, p, 2))
-    boxes = np.concatenate([xy, xy + rng.uniform(4, 60, (b, p, 2))],
-                           -1).astype(np.float32)
-    valid = rng.rand(b, p) > 0.1
-    hw = np.array([[H, W], [96, 128]], np.int32)
-    kw = dict(num_classes=k, topk_per_image=50, candidate_topk=400)
-    out = fast_rcnn_inference(torch.from_numpy(logits),
-                              torch.from_numpy(deltas),
-                              torch.from_numpy(boxes),
-                              torch.from_numpy(valid), torch.from_numpy(hw),
-                              **kw)
-    for i in range(b):
-        ref = jax_fast_rcnn_inference(
-            jnp.asarray(logits[i]), jnp.asarray(deltas[i]),
-            jnp.asarray(boxes[i]), jnp.asarray(valid[i]), jnp.asarray(hw[i]),
-            **kw)
-        np.testing.assert_array_equal(out[3][i].numpy(), np.asarray(ref[3]))
-        np.testing.assert_array_equal(out[2][i].numpy(), np.asarray(ref[2]))
-        np.testing.assert_allclose(out[1][i].numpy(), np.asarray(ref[1]),
-                                   rtol=1e-6, atol=1e-7)
-        np.testing.assert_allclose(out[0][i].numpy(), np.asarray(ref[0]),
-                                   rtol=1e-6, atol=1e-4)
-
-
 def match_detections(a, b, iou_min=0.99, score_tol=1e-4):
     """Every detection of ``a`` (boxes, scores, classes) has one in ``b``
     with its class, IoU >= iou_min and a score within score_tol, and the
@@ -232,30 +198,6 @@ def match_detections(a, b, iou_min=0.99, score_tol=1e-4):
     ok = ((iou >= iou_min) & (ac[:, None] == bc[None, :])
           & (np.abs(as_[:, None] - bs[None, :]) <= score_tol))
     assert ok.any(axis=1).all(), f"{(~ok.any(axis=1)).sum()} unmatched"
-
-
-@pytest.mark.parametrize(
-    "depth,stride_in_1x1,padded",
-    [(14, True, False), (14, True, True), (14, False, True),
-     (26, True, True)],
-)
-def test_forward_inference_matches_jax(depth, stride_in_1x1, padded):
-    jmodel, params, port = models(depth, stride_in_1x1)
-    canvas, hw, orig = inputs(padded)
-    det = jax.device_get(jax.jit(functools.partial(jmodel.apply, train=False))(
-        {"params": params}, jax_images(canvas, hw, orig)))
-    with torch.no_grad():
-        tdet = port.forward_inference(port_images(canvas, hw, orig))
-    assert int(np.asarray(det.valid).sum()) > 10  # the comparison has teeth
-    for i in range(2):
-        jv = np.asarray(det.valid[i])
-        tv = tdet.valid[i].numpy()
-        match_detections(
-            (tdet.boxes[i].numpy()[tv], tdet.scores[i].numpy()[tv],
-             tdet.classes[i].numpy()[tv]),
-            (np.asarray(det.boxes[i])[jv], np.asarray(det.scores[i])[jv],
-             np.asarray(det.classes[i])[jv]),
-        )
 
 
 @pytest.mark.parametrize("meta,key,value", [

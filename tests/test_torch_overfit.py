@@ -264,18 +264,6 @@ def test_overfit_map_check_fails_an_untrained_detector(capsys):
                         ]).all()
 
 
-def test_overfit_distill_check_reloads_and_resets_the_student(capsys):
-    """Plumbing on the CPU: 2 steps a stage; stage 2 starts from stage 1's
-    checkpoint with the student drawn afresh; two logged values cannot
-    show a falling loss, so the check fails."""
-    with pytest.raises(AssertionError, match="did not decrease"):
-        port_distill.main(["--device", "cpu", "--opts", "SOLVER.MAX_ITER",
-                           "2"])
-    out = _json_line(capsys.readouterr().out)
-    assert out["reset_tensors"] >= 6
-    assert np.isfinite(out["loss_kl"] + out["loss_student_feat"]).all()
-
-
 @pytest.mark.gate
 def test_tiny_overfit_map_check_passes_with_pcb():
     out = port_map.main(["--device", "cpu", "--pcb"])

@@ -258,30 +258,6 @@ def _data():
     return [(port_images(canvas, hw, orig), port_gt(*gt_arrays(hw)))]
 
 
-def test_checkpoint_resume_continues_the_same_run(tmp_path):
-    """4 steps straight equal 2 steps, a new Trainer resuming from the
-    checkpoint, and 2 more: the iteration, the optimizer's momentum, the
-    scheduler and the step's generators all come back."""
-    straight = Trainer(_tiny_cfg(tmp_path / "a", 4), _data(), device="cpu")
-    straight.train()
-    first = Trainer(_tiny_cfg(tmp_path / "b", 2), _data(), device="cpu")
-    first.train()
-    assert (tmp_path / "b" / "model_0000001.pth").exists()
-    assert (tmp_path / "b" / "last_checkpoint").read_text() == \
-        "model_final.pth"
-    second = Trainer(_tiny_cfg(tmp_path / "b", 4), _data(), device="cpu")
-    second.resume_or_load()
-    assert second.start_iter == 2
-    assert second.scheduler.last_epoch == 2
-    second.train()
-    a = straight.model.state_dict()
-    b = second.model.state_dict()
-    for k in a:
-        torch.testing.assert_close(b[k], a[k], rtol=0, atol=0, msg=k)
-    assert straight.optimizer.param_groups[0]["lr"] == \
-        second.optimizer.param_groups[0]["lr"]
-
-
 def test_sigterm_saves_and_stops_without_model_final(tmp_path):
     if threading.current_thread() is not threading.main_thread():
         pytest.skip("signal handlers are installed from the main thread")

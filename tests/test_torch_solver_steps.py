@@ -63,8 +63,15 @@ STEP_CONTRACTS = {
 }
 
 
-@pytest.mark.parametrize("contract", list(STEP_CONTRACTS))
+# the gfsod and sabotaged contracts run in
+# tests/test_torch_solver_steps_{gfsod,sabotaged}.py (each file a small
+# share of one xdist worker)
+@pytest.mark.parametrize("contract", ["base"])
 def test_three_sgd_steps_match_jax_make_train_step(contract):
+    check_three_steps(contract)
+
+
+def check_three_steps(contract):
     freeze_at, freeze_feat, rpn_scale, roi_scale, frozen, decay = \
         STEP_CONTRACTS[contract]
     cfg = _step_cfg(freeze_at, freeze_feat, decay)
