@@ -23,7 +23,10 @@ and on SIGTERM saves and stops. A batch of the device-preprocessing loader
 resized on the device first. TPU.DEBUG_NANS checks each step's losses and
 gradients and raises ``FloatingPointError`` on the first non-finite one;
 TPU.PROFILE_START_STEP / PROFILE_NUM_STEPS trace a window of steps with
-``torch.profiler`` into OUTPUT_DIR/profile.
+``torch.profiler`` into OUTPUT_DIR/profile; under a profiler each step's
+stages are spans (``utils/tracing.py``): ``train.fetch``,
+``train.forward``, ``train.backward``, ``train.optimizer``, ``train.log``
+and ``train.checkpoint``.
 
 Under a process group (``parallel.init_distributed``, one process a
 device, as ``engine/launch.py`` starts them) each rank takes its
@@ -73,6 +76,7 @@ from ..parallel import (
 )
 from ..solver import build_gradient_clipper, build_optimizer, build_scheduler
 from ..utils.events import MetricsLogger
+from ..utils.tracing import span
 from .predictor import resolve_device
 
 # options of the JAX trainer that this package does not have:
@@ -208,23 +212,26 @@ def make_train_step(model, optimizer, scheduler=None, clip=None,
             return run(images, gt, step, meta)
 
     def run(images, gt, step, meta):
-        if meta is not None and "target_hw" in meta:
-            images = preprocess_batch(images, meta)
-        device = images.image.device
-        sampling, dropout = step_generators(seed, step,
-                                            draw_device or device)
-        losses = forward(images, gt, sampling, dropout)
-        total = sum(v for k, v in losses.items()
-                    if not k.startswith("metric/"))
+        with span("train.forward"):
+            if meta is not None and "target_hw" in meta:
+                images = preprocess_batch(images, meta)
+            device = images.image.device
+            sampling, dropout = step_generators(seed, step,
+                                                draw_device or device)
+            losses = forward(images, gt, sampling, dropout)
+            total = sum(v for k, v in losses.items()
+                        if not k.startswith("metric/"))
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        with span("train.backward"):
+            total.backward()
         if debug_nans:
             check_finite(step, {**losses, "total_loss": total}, named)
-        if clip is not None:
-            clip(params)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with span("train.optimizer"):
+            if clip is not None:
+                clip(params)
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
         out = {k: v.detach() for k, v in losses.items()}
         out["total_loss"] = total.detach()
         return mean_over_ranks(out)
@@ -344,15 +351,17 @@ class Trainer:
             while it < self.max_iter:
                 if it == profile_start:
                     profiler = self._start_profile()
-                images, gt, meta = next(batches)
+                with span("train.fetch"):
+                    images, gt, meta = next(batches)
                 losses = self.train_step(images, gt, it, meta)
                 self.last_losses = losses
                 if it % 20 == 0 or it == self.max_iter - 1:
                     now = time.time()
-                    self.metrics.log(
-                        it, {**losses,
-                             "lr": self.optimizer.param_groups[0]["lr"],
-                             "time_since_last_log": now - t_last})
+                    with span("train.log"):
+                        self.metrics.log(
+                            it, {**losses,
+                                 "lr": self.optimizer.param_groups[0]["lr"],
+                                 "time_since_last_log": now - t_last})
                     t_last = now
                 period = cfg.SOLVER.CHECKPOINT_PERIOD
                 if period > 0 and (it + 1) % period == 0:
@@ -405,16 +414,17 @@ class Trainer:
 
     def save(self, iteration: int, name=None) -> None:
         """Every rank calls it (FSDP2 gathers the shards); rank 0
-        writes."""
-        state = training_state(self.model, self.optimizer, self.scheduler,
-                               iteration)
-        if not is_main_process():
-            return
-        name = name or f"model_{iteration:07d}"
-        if self.cfg.TPU.ASYNC_CHECKPOINT:
-            self.checkpointer.save_async(state, name)
-        else:
-            self.checkpointer.save(state, name)
+        writes. A span ``train.checkpoint`` under ``torch.profiler``."""
+        with span("train.checkpoint"):
+            state = training_state(self.model, self.optimizer,
+                                   self.scheduler, iteration)
+            if not is_main_process():
+                return
+            name = name or f"model_{iteration:07d}"
+            if self.cfg.TPU.ASYNC_CHECKPOINT:
+                self.checkpointer.save_async(state, name)
+            else:
+                self.checkpointer.save(state, name)
 
     def inference_model(self):
         """The model to evaluate: the trained one, or under FSDP2 a whole

@@ -10,6 +10,10 @@ copy per field, and the padded tail of a bucket group
 follows the reference: the first ``NUM_WARMUP`` batches are left out of the
 per-image compute time, which is logged and kept, with the image count,
 the wall time and PCB's time, in ``inference_on_dataset.last_timing``.
+Under ``torch.profiler`` each batch's stages are spans (``utils/tracing.py``):
+``eval.fetch`` (the next batch and its copies), ``eval.forward`` (the
+forward enqueued), ``eval.to_host`` (the detections' copies, where the host
+waits for the batch's device work), ``eval.pcb`` and ``eval.collect``.
 
 With ``pcb`` (a ``PrototypicalCalibrationBlock``), each batch's host
 detections, in original-image coordinates, are rescored with the batch's
@@ -34,6 +38,7 @@ teachers and the painting meta-archs compute across a batch.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import time
 from typing import Optional
@@ -43,6 +48,7 @@ import torch
 from ..data.device_preprocess import preprocess_batch
 from ..data.loader import device_batches
 from ..parallel import allgather_pyobj, get_rank, get_world_size
+from ..utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -90,22 +96,28 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
     batches = device_batches(data_loader, device)
     try:
         with torch.inference_mode():
-            for k, (images, gt, meta) in enumerate(batches):
+            for k in itertools.count():
+                with span("eval.fetch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                images, gt, meta = batch
                 entry = None
                 # a plain loader's batch of another rank is skipped too
                 if images is not None and k % world == rank:
                     entry, secs = _run_batch(model, images, gt, meta,
                                              feed_gt, pcb)
                     pcb_s += secs
-                for got in allgather_pyobj(entry):
-                    if got is None:
-                        continue
-                    ids, fields = got
-                    num_images += len(ids)
-                    if steady_start is not None:
-                        steady_images += len(ids)
-                    if evaluator is not None:
-                        evaluator.process_detections(ids, *fields)
+                with span("eval.collect"):
+                    for got in allgather_pyobj(entry):
+                        if got is None:
+                            continue
+                        ids, fields = got
+                        num_images += len(ids)
+                        if steady_start is not None:
+                            steady_images += len(ids)
+                        if evaluator is not None:
+                            evaluator.process_detections(ids, *fields)
                 if k + 1 == NUM_WARMUP:
                     steady_start = time.perf_counter()
     finally:
@@ -130,20 +142,23 @@ def inference_on_dataset(model, data_loader, evaluator: Optional[
 def _run_batch(model, images, gt, meta, feed_gt: bool, pcb):
     """One batch's (image ids, [boxes, scores, classes, valid] on the host)
     without the padded tail, rescored by ``pcb``; and PCB's seconds."""
-    if "target_hw" in meta:  # TPU.DEVICE_PREPROCESS
-        images = preprocess_batch(images, meta)
-    det = model.forward_inference(images, gt if feed_gt else None)
+    with span("eval.forward"):
+        if "target_hw" in meta:  # TPU.DEVICE_PREPROCESS
+            images = preprocess_batch(images, meta)
+        det = model.forward_inference(images, gt if feed_gt else None)
     n = meta.get("valid_count", images.image.shape[0])
-    fields = [t[:n].cpu().numpy() for t in
-              (det.boxes, det.scores, det.classes, det.valid)]
+    with span("eval.to_host"):
+        fields = [t[:n].cpu().numpy() for t in
+                  (det.boxes, det.scores, det.classes, det.valid)]
     ids = list(meta.get("image_ids", list(range(n)))[:n])
     if pcb is None:
         return (ids, fields), 0.0
     t0 = time.perf_counter()
     names = meta.get("file_names")
-    det_np = pcb.execute_calibration(
-        ids, dict(zip(("boxes", "scores", "classes", "valid"), fields)),
-        file_names=None if names is None else names[:n])
+    with span("eval.pcb"):
+        det_np = pcb.execute_calibration(
+            ids, dict(zip(("boxes", "scores", "classes", "valid"), fields)),
+            file_names=None if names is None else names[:n])
     fields = [det_np[k] for k in ("boxes", "scores", "classes", "valid")]
     return (ids, fields), time.perf_counter() - t0
 

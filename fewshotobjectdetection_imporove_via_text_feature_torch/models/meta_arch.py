@@ -13,6 +13,11 @@ The ROI head is chosen by ``roi_heads_name`` (MODEL.ROI_HEADS.NAME):
 bank. The text meta-archs there reuse this skeleton: ``compute_features``
 takes the GT they paint, ``_train_tail`` their extra losses, and
 ``eval_gt_role`` says what GT handed to ``forward_inference`` means.
+
+Under ``torch.profiler`` the stages are spans (``utils/tracing.py``):
+``normalize``, ``backbone`` (stem to res4), ``branch`` (GDL's affine
+layers), ``rpn`` (head to the NMS kernel), ``roi_heads`` and, in
+inference, ``detections`` (the final NMS, top-k and the rescale).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ..ops.matcher import match_proposals
 from ..parallel.collectives import global_normalizer
 from ..parallel.spatial import banded_backbone
 from ..structures import Detections, GTInstances, ImageBatch
+from ..utils.tracing import span
 from .backbone import RESNET_STAGES, ResNetC4
 from .fast_rcnn import (
     fast_rcnn_inference,
@@ -272,12 +278,14 @@ class GeneralizedRCNN(nn.Module):
         painting meta-archs, this one ignores it. With ``spatial_devices``
         the backbone runs in row bands and only res4 comes back, gathered
         on the first of them (``parallel/spatial.py``)."""
-        x = self.normalize(images.image)
-        if self.spatial_devices is not None:
-            feats = {"res4": banded_backbone(self.backbone, x,
-                                             self.spatial_devices)}
-        else:
-            feats = self.backbone(x)
+        with span("normalize"):
+            x = self.normalize(images.image)
+        with span("backbone"):
+            if self.spatial_devices is not None:
+                feats = {"res4": banded_backbone(self.backbone, x,
+                                                 self.spatial_devices)}
+            else:
+                feats = self.backbone(x)
         feat = feats["res4"]
         if self.freeze_backbone:
             feat = feat.detach()
@@ -285,31 +293,33 @@ class GeneralizedRCNN(nn.Module):
 
     def branch_features(self, feat):
         """GDL + affine per branch (ref rcnn.py:88-98)."""
-        feat_rpn = feat
-        if self.rpn_enable_decouple:
-            feat_rpn = self.affine_rpn(
-                decouple_layer(feat, self.rpn_backward_scale))
-        feat_rcnn = feat
-        if self.roi_enable_decouple:
-            feat_rcnn = self.affine_rcnn(
-                decouple_layer(feat, self.roi_backward_scale))
+        with span("branch"):
+            feat_rpn = feat
+            if self.rpn_enable_decouple:
+                feat_rpn = self.affine_rpn(
+                    decouple_layer(feat, self.rpn_backward_scale))
+            feat_rcnn = feat
+            if self.roi_enable_decouple:
+                feat_rcnn = self.affine_rcnn(
+                    decouple_layer(feat, self.roi_backward_scale))
         return feat_rpn, feat_rcnn
 
     def run_rpn(self, feat_rpn, images: ImageBatch, train: bool):
-        logits, deltas = self.proposal_generator.rpn_head(feat_rpn)
-        if self.freeze_rpn:
-            logits, deltas = logits.detach(), deltas.detach()
-        h, w = feat_rpn.shape[2], feat_rpn.shape[3]
-        idx = 0 if train else 1
-        proposals = select_top_proposals(
-            logits.detach(), deltas.detach(),
-            cell_anchors(self.anchor_sizes, self.anchor_aspect_ratios),
-            (h, w), self.anchor_stride, images.hw,
-            pre_nms_topk=self.rpn_pre_nms_topk[idx],
-            post_nms_topk=self.rpn_post_nms_topk[idx],
-            nms_thresh=self.rpn_nms_thresh, min_size=self.rpn_min_size,
-            bbox_reg_weights=self.rpn_bbox_reg_weights,
-        )
+        with span("rpn"):
+            logits, deltas = self.proposal_generator.rpn_head(feat_rpn)
+            if self.freeze_rpn:
+                logits, deltas = logits.detach(), deltas.detach()
+            h, w = feat_rpn.shape[2], feat_rpn.shape[3]
+            idx = 0 if train else 1
+            proposals = select_top_proposals(
+                logits.detach(), deltas.detach(),
+                cell_anchors(self.anchor_sizes, self.anchor_aspect_ratios),
+                (h, w), self.anchor_stride, images.hw,
+                pre_nms_topk=self.rpn_pre_nms_topk[idx],
+                post_nms_topk=self.rpn_post_nms_topk[idx],
+                nms_thresh=self.rpn_nms_thresh, min_size=self.rpn_min_size,
+                bbox_reg_weights=self.rpn_bbox_reg_weights,
+            )
         return logits, deltas, proposals
 
     def forward(self, images: ImageBatch) -> Detections:
@@ -372,9 +382,11 @@ class GeneralizedRCNN(nn.Module):
         teacher losses with the ``_t`` suffix and its extra losses."""
         gt_classes = sampled["gt_classes"].reshape(-1)
         valid = sampled["valid"].reshape(-1)
-        scores, deltas, aux = self.roi_heads(
-            feat_rcnn, sampled["boxes"], train=True,
-            generator=dropout_generator, gt_classes=gt_classes, valid=valid)
+        with span("roi_heads"):
+            scores, deltas, aux = self.roi_heads(
+                feat_rcnn, sampled["boxes"], train=True,
+                generator=dropout_generator, gt_classes=gt_classes,
+                valid=valid)
 
         def det_losses(s, d):
             return fast_rcnn_losses(
@@ -447,19 +459,21 @@ class GeneralizedRCNN(nn.Module):
             head_kwargs = dict(
                 gt_classes=self.label_proposals(proposals, gt).reshape(-1),
                 valid=proposals.valid.reshape(-1))
-        scores, deltas, _ = self.roi_heads(feat_rcnn, proposals.boxes,
-                                           **head_kwargs)
+        with span("roi_heads"):
+            scores, deltas, _ = self.roi_heads(feat_rcnn, proposals.boxes,
+                                               **head_kwargs)
         b, p = proposals.boxes.shape[:2]
-        boxes, scores, classes, valid = fast_rcnn_inference(
-            scores.reshape(b, p, -1), deltas.reshape(b, p, -1),
-            proposals.boxes, proposals.valid, images.hw,
-            num_classes=self.num_classes,
-            score_thresh=self.test_score_thresh,
-            nms_thresh=self.test_nms_thresh,
-            topk_per_image=self.test_topk_per_image,
-            candidate_topk=self.test_candidate_topk,
-            box_reg_weights=self.box_reg_weights,
-        )
-        boxes = rescale_detections(boxes, images.hw, images.orig_hw)
+        with span("detections"):
+            boxes, scores, classes, valid = fast_rcnn_inference(
+                scores.reshape(b, p, -1), deltas.reshape(b, p, -1),
+                proposals.boxes, proposals.valid, images.hw,
+                num_classes=self.num_classes,
+                score_thresh=self.test_score_thresh,
+                nms_thresh=self.test_nms_thresh,
+                topk_per_image=self.test_topk_per_image,
+                candidate_topk=self.test_candidate_topk,
+                box_reg_weights=self.box_reg_weights,
+            )
+            boxes = rescale_detections(boxes, images.hw, images.orig_hw)
         return Detections(boxes=boxes, scores=scores, classes=classes,
                           valid=valid)
